@@ -1,0 +1,70 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+configuration copy keeps the JAX package's keys and defaults, and its entry
+points default to the card and refuse to start without one."""
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import vision_semantic_segmentation_tpu_torch as port
+from vision_semantic_segmentation_tpu import config as j_config
+from vision_semantic_segmentation_tpu_torch import config
+from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
+from vision_semantic_segmentation_tpu_torch.models import build_model
+from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline, MappingReplay
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import vision_semantic_segmentation_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vision_semantic_segmentation_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_no_jax_imports():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    walked = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
+    assert set(result["modules"]) == walked and len(walked) > 20
+    assert result["bad"] == []
+
+
+def test_no_jax_in_chip_smoke():
+    probe = (
+        "import runpy, sys; runpy.run_path('chip_smoke.py', run_name='not_main'); "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'vision_semantic_segmentation_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_config_copy_matches():
+    assert config.get_cfg_defaults() == j_config.get_cfg_defaults()
+    assert config.get_demo_cfg_defaults() == j_config.get_demo_cfg_defaults()
+    assert config.get_train_cfg_defaults() == j_config.get_train_cfg_defaults()
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: FusedFramePipeline(cfg),
+    lambda cfg: MappingReplay(cfg),
+    lambda cfg: SemanticMappingEngine(cfg),
+    lambda cfg: build_model(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK),
+], ids=["pipeline", "replay", "engine", "build_model"])
+def test_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(config.get_cfg_defaults())

@@ -1,0 +1,73 @@
+"""Model registry (ref models/build.py:57-72).
+
+Port of ``vision_semantic_segmentation_tpu/models/build.py`` for DeepLabV3+
+and the Dummy model (Xception waits).  ``build_model`` returns the network
+alone, in eval mode, on ``device`` (CUDA unless the caller asks for the
+CPU), in ``dtype`` and channels-last memory.  Weights are drawn from
+``generator`` (He-normal fan-out convs, identity BatchNorm — the JAX
+package's initialisers), or load afterwards with
+``load_state_dict(strict=True)`` (see ``models/convert.py``).  The loss and
+metric objects of the JAX registry are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+from .deeplab import deeplab_from_cfg
+from .resize import resize_nchw
+
+
+class Dummy(nn.Module):
+    """Tiny stand-in model (ref models/build.py:27-54) for pipeline tests.
+
+    ``Conv.0`` / ``Conv.1`` are the flax auto-names ``Conv_0`` / ``Conv_1``.
+    """
+
+    def __init__(self, num_classes: int):
+        super().__init__()
+        self.Conv = nn.ModuleList([nn.Conv2d(3, 32, 3, padding=1), nn.Conv2d(32, num_classes, 1)])
+
+    def forward(self, x: torch.Tensor, upsample_pred: bool = True) -> torch.Tensor:
+        y = self.Conv[1](F.relu(self.Conv[0](x)))
+        if upsample_pred:
+            y = resize_nchw(y, x.shape[-2:])
+        return y
+
+
+_MODEL_BUILDERS = {
+    "DeepLabv3+": deeplab_from_cfg,
+    "Dummy": lambda cfg: Dummy(cfg.DATASET.NUM_CLASSES),
+}
+
+
+def init_weights_(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """He-normal (fan-out, ReLU) conv kernels, zero biases, identity BatchNorm."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
+                                        generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
+
+
+def build_model(
+    cfg,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = "cuda",
+    generator: Optional[torch.Generator] = None,
+) -> nn.Module:
+    """Build ``cfg.MODEL.TYPE`` (a network config node) ready for inference."""
+    if cfg.MODEL.TYPE not in _MODEL_BUILDERS:
+        raise KeyError(f"Unknown MODEL.TYPE {cfg.MODEL.TYPE!r}")
+    dev = resolve_device(device)
+    model = init_weights_(_MODEL_BUILDERS[cfg.MODEL.TYPE](cfg), generator)
+    return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()

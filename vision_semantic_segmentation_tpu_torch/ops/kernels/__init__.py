@@ -1,0 +1,38 @@
+"""Hand-written CUDA kernels for Hopper, one per TPU kernel on the main path.
+
+==========  ==========================================  =====================
+wrapper     replaces (JAX package)                      CUDA source
+==========  ==========================================  =====================
+K1 render   ops/pallas/render.py::render_bev_map_fused  csrc/render.cu
+K2 fold     ops/pallas/fold.py::evidence_fold_add       csrc/fold.cu
+K3 dw       ops/pallas/depthwise.py::depthwise3x3_dil.  csrc/depthwise.cu
+==========  ==========================================  =====================
+
+Each wrapper runs its plain PyTorch version for a CPU tensor and launches
+its kernel for a CUDA tensor (or raises).
+"""
+from ._lib import CudaKernel, build_all, kernels, plain_versions, reset_launch_counts
+from .depthwise import depthwise3x3_dilated, depthwise3x3_dilated_plain
+from .fold import evidence_fold_add_, evidence_fold_add_plain
+from .render import (
+    pack_colors,
+    render_bev_map_fused,
+    render_bev_map_plain,
+    unpack_rgba_image,
+)
+
+__all__ = [
+    "CudaKernel",
+    "build_all",
+    "kernels",
+    "plain_versions",
+    "reset_launch_counts",
+    "depthwise3x3_dilated",
+    "depthwise3x3_dilated_plain",
+    "evidence_fold_add_",
+    "evidence_fold_add_plain",
+    "pack_colors",
+    "render_bev_map_fused",
+    "render_bev_map_plain",
+    "unpack_rgba_image",
+]

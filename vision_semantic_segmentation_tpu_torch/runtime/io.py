@@ -1,0 +1,70 @@
+"""Deterministic replay frame IO.
+
+The reference records every mapping input to an ``input_list.hkl`` hickle
+file ({pcd, pcd_frame_id, semantic_image, pose} per frame, ref
+mapping.py:309-326) and replays it bit-identically offline
+(mapping_replay.py:146-211).  The native format here is ``.npz`` (one
+archive per sequence, per-frame keys).
+
+Port copy of the ``.npz`` part of ``vision_semantic_segmentation_tpu/
+runtime/io.py``; the reference ``.hkl``/pickle readers are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class FrameRecord:
+    """One mapping input frame (ref mapping.py:309-313)."""
+
+    pcd: np.ndarray                # (4, N) x, y, z, intensity
+    pcd_frame_id: str              # e.g. 'world' (points_map) or 'velodyne'
+    semantic_image: np.ndarray     # (H, W, 3) uint8 RGB
+    position: np.ndarray           # (3,) pose position
+    quaternion: np.ndarray         # (4,) pose orientation x, y, z, w
+    camera: str = "camera1"
+    stamp: float = 0.0
+
+
+def save_frames(frames: Sequence[FrameRecord], path: str) -> None:
+    """Persist a sequence as one .npz archive."""
+    arrays = {"num_frames": np.asarray(len(frames))}
+    meta = []
+    for i, f in enumerate(frames):
+        arrays[f"pcd_{i}"] = np.asarray(f.pcd, dtype=np.float32)
+        arrays[f"image_{i}"] = np.asarray(f.semantic_image, dtype=np.uint8)
+        arrays[f"position_{i}"] = np.asarray(f.position, dtype=np.float64)
+        arrays[f"quaternion_{i}"] = np.asarray(f.quaternion, dtype=np.float64)
+        meta.append((f.pcd_frame_id, f.camera, f.stamp))
+    arrays["meta"] = np.asarray(meta, dtype=object)
+    # NOTE: savez has no allow_pickle parameter (np.save's default already
+    # permits the object 'meta' array); passing one would store a bogus
+    # scalar array named 'allow_pickle' in every archive
+    np.savez_compressed(path, **arrays)
+
+
+def load_frames(path: str) -> List[FrameRecord]:
+    """Load a sequence saved by :func:`save_frames`."""
+    frames: List[FrameRecord] = []
+    with np.load(path, allow_pickle=True) as data:
+        n = int(data["num_frames"])
+        meta = data["meta"]
+        for i in range(n):
+            frame_id, camera, stamp = meta[i]
+            frames.append(
+                FrameRecord(
+                    pcd=data[f"pcd_{i}"],
+                    pcd_frame_id=str(frame_id),
+                    semantic_image=data[f"image_{i}"],
+                    position=data[f"position_{i}"],
+                    quaternion=data[f"quaternion_{i}"],
+                    camera=str(camera),
+                    stamp=float(stamp),
+                )
+            )
+    return frames
+

@@ -1,0 +1,156 @@
+"""Fused camera + LiDAR frame pipeline.
+
+Port of ``vision_semantic_segmentation_tpu/runtime/pipeline.py``: raw uint8
+camera frame + point cloud + pose -> updated BEV grid,
+
+    scale -> normalize -> DeepLab forward -> argmax -> network-class ->
+    map-channel table -> point projection -> label gather -> evidence update
+
+The class-id shortcut skips the reference's RGB colourise/palette-match
+round trip while staying identical: the network-class -> channel lookup
+composes the palette write (ref node:114) with the engine's palette match
+(ref mapping.py:414-424).
+
+On the card the forward's ASPP depthwise convs run K3, the update's fold
+runs K2, and ``MappingReplay.finalize`` renders with K1.  Not ported yet:
+``distortion='image'`` (needs ``ops/warp.py``), confidence weighting, and
+``UPSAMPLE_PRED``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..mapping.engine import SemanticMappingEngine
+from ..models.build import build_model
+from ..ops.resize import resize_area
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def network_to_channel_table(cfg, num_network_classes: int = 19) -> np.ndarray:
+    """(num_network_classes,) -> mapped grid channel, -1 when unmapped.
+
+    Composes cfg.LABELS (network index of each mapped channel,
+    ref base_cfg.py:47): e.g. network class 2 (road) -> channel 0.
+    """
+    table = np.full(num_network_classes, -1, dtype=np.int32)
+    for channel, net_idx in enumerate(cfg.LABELS):
+        table[net_idx] = channel
+    return table
+
+
+class FusedFramePipeline:
+    """Camera + LiDAR fusion step against the device-resident grid."""
+
+    def __init__(
+        self,
+        cfg,
+        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+        engine: Optional[SemanticMappingEngine] = None,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        distortion: str = "none",
+        device: DeviceLike = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Args:
+            state_dict: network weights (``models/convert.py`` turns the JAX
+              package's variables into one); None draws them from
+              ``generator``.
+            distortion: ``'none'`` — frames are already rectified/pinhole;
+              ``'points'`` — segment the raw frame and apply the plumb-bob
+              forward model to the projected points (engine
+              ``distorted_image`` mode).
+            compute_dtype: the network's dtype (bf16 default, or f32).
+        """
+        if distortion not in ("none", "points"):
+            raise ValueError(f"distortion {distortion!r} is not ported (none|points)")
+        self.device = resolve_device(device)
+        self.distortion = distortion
+        self.cfg = cfg
+        self.engine = engine or SemanticMappingEngine(cfg, device=self.device)
+        if self.engine.device != self.device:
+            raise ValueError(f"engine on {self.engine.device}, pipeline on {self.device}")
+        net_cfg = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+        self.compute_dtype = compute_dtype
+        self.model = build_model(net_cfg, dtype=compute_dtype, device=self.device,
+                                 generator=generator)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self.image_scale = float(cfg.VISION_SEM_SEG.IMAGE_SCALE)
+        self.channel_table = torch.as_tensor(
+            network_to_channel_table(cfg, net_cfg.DATASET.NUM_CLASSES), device=self.device
+        )
+        self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self._pointwise: Dict[Tuple, Callable] = {}
+        self._apply_update = self.engine._build_update()
+
+    def init_grid(self) -> torch.Tensor:
+        return self.engine.init_grid()
+
+    @torch.no_grad()
+    def segment(self, frame_u8: torch.Tensor) -> torch.Tensor:
+        """Raw (H, W, 3) uint8 frame -> (1, C, h', w') logits (ref node:82-110)."""
+        x = frame_u8
+        if self.image_scale < 1.0:
+            h, w = frame_u8.shape[0], frame_u8.shape[1]
+            x = resize_area(x, (int(h * self.image_scale), int(w * self.image_scale)))
+        xf = (x.float() / 255.0 - self._mean) / self._std
+        # (H, W, 3) is already channels-last memory for the NCHW view
+        xf = xf.permute(2, 0, 1)[None].to(self.compute_dtype)
+        return self.model(xf, upsample_pred=False)
+
+    def _pointwise_for(self, camera: str, image_hw, velodyne_frame: bool):
+        key = (camera, tuple(image_hw), velodyne_frame)
+        if key not in self._pointwise:
+            self._pointwise[key] = self.engine._build_pointwise(
+                camera, velodyne_frame, image_is_class_id=True,
+                image_full_hw=tuple(image_hw),
+                distorted_image=(self.distortion == "points"),
+            )
+        return self._pointwise[key]
+
+    @torch.no_grad()
+    def step(self, grid, frame_u8, pcd, valid, position, quaternion,
+             camera: str = "camera1", pcd_frame_id: str = ""):
+        """Fuse one raw frame into ``grid`` (in place); returns (grid, labels)."""
+        as_t = self.engine.as_tensor
+        frame_u8 = as_t(frame_u8, torch.uint8)
+        logits = self.segment(frame_u8)
+        net_labels = torch.argmax(logits, dim=1)[0].to(torch.int32)
+        # the channel image stays at decoder resolution; the engine gathers
+        # with nearest-downscaled indices
+        table = self.channel_table
+        channel_img = table[torch.clamp(net_labels, 0, table.shape[0] - 1).long()]
+        pointwise = self._pointwise_for(
+            camera, frame_u8.shape[:2], pcd_frame_id == "velodyne"
+        )
+        pcd = as_t(pcd, torch.float32)
+        cell, cls, vis, upd = pointwise(
+            pcd, as_t(valid, torch.bool), channel_img,
+            as_t(position, torch.float32), as_t(quaternion, torch.float32),
+        )
+        grid = self._apply_update(grid, cell, cls, pcd[3], upd)
+        return grid, net_labels
+
+    def run_window(self, grid, frames: Mapping[str, object], camera: str = "camera1",
+                   pcd_frame_id: str = ""):
+        """Fuse a stacked frame window into ``grid``.
+
+        ``frames`` holds stacked arrays: image (T, H, W, 3) u8, pcd
+        (T, 4, N), valid (T, N), position (T, 3), quaternion (T, 4).  A
+        Python loop over frames replaces the JAX package's ``lax.scan``; the
+        grid is updated in place and never leaves the device.
+        """
+        for i in range(len(frames["image"])):
+            grid, _ = self.step(
+                grid, frames["image"][i], frames["pcd"][i], frames["valid"][i],
+                frames["position"][i], frames["quaternion"][i],
+                camera=camera, pcd_frame_id=pcd_frame_id,
+            )
+        return grid
