@@ -5,7 +5,8 @@ running statistics are then redrawn with numpy, so that BatchNorm is not
 the identity.  They cross into the port through ``flax_to_state_dict`` and
 load with ``strict=True``.  Both sides run in f32 on the CPU; outputs agree
 to 1e-4 (the same arithmetic, summed in another order).  On the CPU the
-ASPP depthwise convs run K3's plain version.
+ASPP's atrous depthwise convs run K4's plain version (K3's with a single
+atrous branch).
 """
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from vision_semantic_segmentation_tpu_torch.models import (
     build_model,
     flax_to_state_dict,
 )
+from vision_semantic_segmentation_tpu_torch.models import layers
 from vision_semantic_segmentation_tpu_torch.models.layers import DepthwiseConv2d
 from vision_semantic_segmentation_tpu_torch.models.resnet import BasicBlock, Bottleneck
 
@@ -159,9 +161,24 @@ class TestBlocks:
         assert out["feature"].shape[-2:] == (5, 5)  # output stride 8
 
 
+def _spy_depthwise(monkeypatch):
+    """Count the ASPP's calls of the K4 and K3 wrappers (their plain route on the CPU)."""
+    calls = {"K4": 0, "K3": 0}
+
+    def spy(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(layers, "aspp_depthwise3x3_multi", spy("K4", layers.aspp_depthwise3x3_multi))
+    monkeypatch.setattr(layers, "depthwise3x3_dilated", spy("K3", layers.depthwise3x3_dilated))
+    return calls
+
+
 class TestHeads:
     @pytest.mark.parametrize("dilations", [(1, 2, 3, 5), (1, 12, 24, 36)])
-    def test_aspp(self, rng, dilations):
+    def test_aspp(self, rng, dilations, monkeypatch):
         x = rng.standard_normal((1, 9, 11, 32)).astype(np.float32)
         kw = dict(out_channels=24, atrous_channels=(16, 8, 8, 8), atrous_dilation=dilations)
         jaspp = j_aspp.ASPP(**kw)
@@ -170,7 +187,31 @@ class TestHeads:
         aspp = _port(ASPP(32, **kw), variables)
         assert all(isinstance(b.depthwise_cnn.conv, DepthwiseConv2d) and b.depthwise_cnn.conv.uses_k3()
                    for b in aspp.module_pyramid[1:])
+        assert aspp.fused_branches() == [1, 2, 3]
+        calls = _spy_depthwise(monkeypatch)
         _assert_close(_nhwc(aspp(_nchw(x))), ref)
+        assert calls == {"K4": 1, "K3": 0}  # the three atrous branches in one K4 call
+
+    def test_aspp_one_atrous_branch_runs_k3(self, rng, monkeypatch):
+        x = rng.standard_normal((1, 9, 11, 32)).astype(np.float32)
+        kw = dict(out_channels=24, atrous_channels=(16, 8), atrous_kernel_size=(1, 3),
+                  atrous_dilation=(1, 4))
+        jaspp = j_aspp.ASPP(**kw)
+        variables = _init(jaspp, rng, x)
+        ref = jaspp.apply(variables, jnp.asarray(x))
+        aspp = _port(ASPP(32, **kw), variables)
+        calls = _spy_depthwise(monkeypatch)
+        _assert_close(_nhwc(aspp(_nchw(x))), ref)
+        assert calls == {"K4": 0, "K3": 1}
+
+    def test_aspp_batch_of_two(self, rng):
+        """Each frame of a batch takes its own K4 call; outputs stack per branch."""
+        x = rng.standard_normal((2, 7, 8, 32)).astype(np.float32)
+        kw = dict(out_channels=24, atrous_channels=(16, 8, 8, 8), atrous_dilation=(1, 2, 3, 5))
+        jaspp = j_aspp.ASPP(**kw)
+        variables = _init(jaspp, rng, x)
+        ref = jaspp.apply(variables, jnp.asarray(x))
+        _assert_close(_nhwc(_port(ASPP(32, **kw), variables)(_nchw(x))), ref)
 
     def test_decoder(self, rng):
         feat = rng.standard_normal((1, 5, 6, 24)).astype(np.float32)

@@ -15,7 +15,15 @@ from vision_semantic_segmentation_tpu import config as j_config
 from vision_semantic_segmentation_tpu_torch import config
 from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
 from vision_semantic_segmentation_tpu_torch.models import build_model
-from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline, MappingReplay
+from vision_semantic_segmentation_tpu_torch.inference import SemanticSegmentation
+from vision_semantic_segmentation_tpu_torch.runtime import (
+    FusedFramePipeline,
+    FusedOnlineNode,
+    MappingNode,
+    MappingReplay,
+    SegmentationNode,
+    TopicBus,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -37,6 +45,9 @@ def test_no_jax_imports():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     walked = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
     assert set(result["modules"]) == walked and len(walked) > 20
+    online = {"inference.predictor", "ops.warp", "ops.kernels.depthwise_hoist", "runtime.bus",
+              "runtime.node", "utils.logger", "utils.file_io"}
+    assert {f"{port.__name__}.{m}" for m in online} <= walked
     assert result["bad"] == []
 
 
@@ -62,9 +73,16 @@ def test_config_copy_matches():
     lambda cfg: MappingReplay(cfg),
     lambda cfg: SemanticMappingEngine(cfg),
     lambda cfg: build_model(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK),
-], ids=["pipeline", "replay", "engine", "build_model"])
-def test_entry_points_default_to_cuda(entry):
+    lambda cfg: SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, state_dict={}),
+    lambda cfg: SegmentationNode(cfg, TopicBus()),
+    lambda cfg: MappingNode(cfg, TopicBus()),
+    lambda cfg: FusedOnlineNode(cfg, TopicBus(), state_dict={}),
+], ids=["pipeline", "replay", "engine", "build_model", "predictor", "segmentation_node",
+        "mapping_node", "fused_online_node"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    cfg = config.get_cfg_defaults()
+    cfg.OUTPUT_DIR = str(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        entry(config.get_cfg_defaults())
+        entry(cfg)

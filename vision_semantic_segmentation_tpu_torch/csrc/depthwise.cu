@@ -23,58 +23,11 @@
 // w_out rounded to 8, VMEM budgets); any C works, with a scalar kernel when
 // C is not a multiple of the vector width.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* v) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  __device__ __forceinline__ static float to_float(float x) { return x; }
-  __device__ __forceinline__ static float from_float(float x) { return x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-  __device__ __forceinline__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ __forceinline__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
 
 // V = channels per thread: Vec<T>::N for the 16-byte path, 1 for the scalar one
 template <typename T, int V>
@@ -92,31 +45,11 @@ __global__ void depthwise_kernel(const T* __restrict__ x,
     float acc[V];
 #pragma unroll
     for (int ti = 0; ti < 3; ++ti) {
-      const int r = row + (ti - 1) * d;
-      const bool row_in = r >= 0 && r < H;
 #pragma unroll
       for (int tj = 0; tj < 3; ++tj) {
-        const int cc = col + (tj - 1) * d;
-        float xv[V];
-        if (row_in && cc >= 0 && cc < W) {
-          const T* src = x + (static_cast<int64_t>(r) * W + cc) * C + c;
-          if constexpr (V == 1) {
-            xv[0] = Vec<T>::to_float(src[0]);
-          } else {
-            Vec<T>::load(src, xv);
-          }
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) xv[v] = 0.0f;
-        }
-        const float* wt = w + (ti * 3 + tj) * C + c;
-        float wv[V];
-        if constexpr (V == 1) {
-          wv[0] = wt[0];
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; v += 4) Vec<float>::load(wt + v, wv + v);
-        }
+        float xv[V], wv[V];
+        load_pixel<T, V>(x, H, W, C, row + (ti - 1) * d, col + (tj - 1) * d, c, xv);
+        load_weights<V>(w + (ti * 3 + tj) * C + c, wv);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           const float term = __fmul_rn(xv[v], wv[v]);
@@ -124,12 +57,7 @@ __global__ void depthwise_kernel(const T* __restrict__ x,
         }
       }
     }
-    T* dst = y + pix * C + c;
-    if constexpr (V == 1) {
-      dst[0] = Vec<T>::from_float(acc[0]);
-    } else {
-      Vec<T>::store(dst, acc);
-    }
+    store_pixel<T, V>(y + pix * C + c, acc);
   }
 }
 
@@ -137,9 +65,8 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w, void* y, int H, int W, int C,
                    int d, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
-  const bool vec = (C % N == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const void* ptrs[] = {x, y, w};
+  const bool vec = vector_ok(C, N, ptrs, 3);
   const int64_t total = static_cast<int64_t>(H) * W * (vec ? C / N : C);
   int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 132 * 64) blocks = 132 * 64;

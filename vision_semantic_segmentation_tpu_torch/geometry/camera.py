@@ -1,9 +1,11 @@
 """Projective camera model.
 
 Port of ``vision_semantic_segmentation_tpu/geometry/camera.py`` (the parts
-the mapping path uses): a frozen calibration container with host-numpy P, K
-and P_norm, and the plumb-bob forward model on tensors.  The two vehicle
-cameras' calibrations (ref camera.py:102-135) are the same numbers.
+the mapping and online paths use): a frozen calibration container with
+host-numpy P, K and P_norm, the plumb-bob forward model on tensors, and the
+host-side inverse map for image undistortion.  The two vehicle cameras'
+calibrations (ref camera.py:102-135) are the same numbers.  Ray casting
+(``pixel_to_ray``, for the hull markers) is not ported yet.
 """
 from __future__ import annotations
 
@@ -52,6 +54,26 @@ class Camera:
         y_d = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
         return torch.stack([x_d, y_d])
 
+    def undistort_maps(self) -> np.ndarray:
+        """The (2, H, W) f32 sampling grid for image undistortion.
+
+        For each *undistorted* output pixel, the distorted source pixel to
+        sample: the inverse map ``cv2.undistort`` builds (ref
+        vision_semantic_segmentation_node.py:85-87).  Host numpy, computed
+        once per camera.  The distortion polynomial runs in f32, as the JAX
+        package evaluates it; the intrinsics in f64.
+        """
+        if self.im_size is None:
+            raise ValueError("im_size required for undistortion")
+        w, h = self.im_size
+        xs, ys = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+        pix = np.stack([xs.ravel(), ys.ravel()])
+        # normalized undistorted coords
+        xy = (np.linalg.inv(self.K) @ np.vstack([pix, np.ones((1, pix.shape[1]))]))[:2]
+        xy_d = self.distort_normalized(torch.from_numpy(xy.astype(np.float32))).numpy()
+        src = self.K @ np.vstack([xy_d, np.ones((1, xy_d.shape[1]))])
+        return (src[:2] / src[2]).reshape(2, h, w).astype(np.float32)
+
 
 def camera_setup_1() -> Camera:
     """Vehicle camera 1 calibration (ref camera.py:102-117)."""
@@ -97,3 +119,11 @@ def camera_setup_6() -> Camera:
     t = -R @ Rt[0:3, 3:4]
     dist = np.array([-0.191070, 0.100324, 0.004250, -0.003317, 0.000000])
     return Camera(K=K, R=R, t=t, im_size=(1920, 1440), id=6, dist=dist)
+
+
+def get_camera(frame_id: str) -> Camera:
+    """Look up a vehicle camera by ROS frame id (ref mapping.py:273-278)."""
+    table = {"camera1": camera_setup_1, "camera6": camera_setup_6}
+    if frame_id not in table:
+        raise KeyError(f"No calibration for frame_id {frame_id!r}")
+    return table[frame_id]()

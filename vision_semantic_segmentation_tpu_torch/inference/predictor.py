@@ -1,0 +1,144 @@
+"""Semantic segmentation predictor: uint8 RGB frame -> label map.
+
+Port of ``vision_semantic_segmentation_tpu/inference/predictor.py`` (ref
+semantic_segmentation.py:20-57): build the model from config, load weights,
+and run normalize + forward + argmax per frame on ``device``.  On the card
+the forward's ASPP runs K4.  The JAX package's per-shape compile cache is a
+``jit`` concern and has no counterpart: PyTorch runs eagerly.  Not ported
+yet: int8 serving (``quantize``, ``MODEL.QPACK``; ROADMAP queue 1 item 10)
+and spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
+item 9); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models.build import build_model
+from ..models.convert import flax_to_state_dict, load_weights
+from ..ops.colormap import MAPILLARY_19_PALETTE, apply_color_map
+from ..ops.resize import resize_area, resize_nearest
+from ..ops.warp import undistort
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class SemanticSegmentation:
+    """End-to-end segmentation: uint8 RGB frame -> label map.
+
+    Args:
+        cfg: network config node (demo tree).
+        state_dict: weights for the port's model; else ``variables`` (the JAX
+            package's flax variables, as numpy), else ``cfg.MODEL.WEIGHT``
+            (a reference ``.pth`` or the JAX package's ``.npz``).
+        compute_dtype: 'bfloat16' (default) or 'float32', or a torch dtype.
+        device: where the network runs; CUDA unless the caller asks for the CPU.
+    """
+
+    def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 variables=None, compute_dtype: Union[str, torch.dtype, None] = None,
+                 device: DeviceLike = "cuda"):
+        if cfg.MODEL.get("QPACK"):
+            raise NotImplementedError(
+                "MODEL.QPACK: int8 serving is not ported (ROADMAP queue 1 item 10, models/quant.py)")
+        if int(cfg.MODEL.get("SPATIAL_SHARDS", 0)) > 1:
+            raise NotImplementedError(
+                "MODEL.SPATIAL_SHARDS: spatially sharded serving is not ported "
+                "(ROADMAP queue 1 item 9, parallel/)")
+        if compute_dtype is None:
+            compute_dtype = cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")
+        self.dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg, dtype=self.dtype, device=self.device)
+        if state_dict is None:
+            if variables is not None:
+                state_dict = flax_to_state_dict(variables)
+            elif cfg.MODEL.WEIGHT:
+                state_dict = load_weights(cfg.MODEL.WEIGHT)
+            else:
+                raise ValueError("cfg.MODEL.WEIGHT is empty and no weights given")
+        self.model.load_state_dict(state_dict, strict=True)
+        self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
+
+    def quantize(self, calib_images) -> None:
+        raise NotImplementedError(
+            "int8 serving is not ported (ROADMAP queue 1 item 10, models/quant.py)")
+
+    @torch.no_grad()
+    def _logits(self, image, upsample_pred: bool) -> torch.Tensor:
+        """(H, W, 3) or (N, H, W, 3) uint8 -> (N, classes, h', w') logits."""
+        x = torch.as_tensor(image, device=self.device)
+        xf = (x.float() / 255.0 - self._mean) / self._std
+        if xf.ndim == 3:
+            xf = xf[None]
+        # NHWC memory is already channels-last for the NCHW view
+        return self.model(xf.permute(0, 3, 1, 2).to(self.dtype), upsample_pred=upsample_pred)
+
+    @staticmethod
+    def _squeeze(t: torch.Tensor) -> torch.Tensor:
+        return t[0] if t.shape[0] == 1 else t
+
+    def labels(self, image, upsample_pred: bool = False) -> torch.Tensor:
+        """uint8 RGB frame -> int32 label map, left on the device."""
+        logits = self._logits(image, upsample_pred)
+        return self._squeeze(torch.argmax(logits, dim=1).to(torch.int32))
+
+    def segmentation(self, image, upsample_pred: bool = False) -> np.ndarray:
+        """uint8 RGB (H, W, 3) -> int32 label map (ref :41-57).
+
+        With the reference's ``upsample_pred=False`` default the label map
+        is at the decoder's output resolution; callers resize it (ref
+        vision_semantic_segmentation_node.py:109).
+        """
+        return self.labels(image, upsample_pred).cpu().numpy()
+
+    def segmentation_with_confidence(
+        self, image, upsample_pred: bool = False
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """uint8 RGB frame -> (label map, softmax probability of the winning class).
+
+        The softmax runs in f32 whatever the compute dtype.
+        """
+        logits = self._logits(image, upsample_pred)
+        labels = torch.argmax(logits, dim=1).to(torch.int32)
+        conf = torch.softmax(logits.float(), dim=1).amax(dim=1)
+        return self._squeeze(labels).cpu().numpy(), self._squeeze(conf).cpu().numpy()
+
+    def logits(self, image, upsample_pred: bool = False) -> torch.Tensor:
+        """Raw logits in the JAX package's layout, (N, h', w', classes)."""
+        return self._logits(image, upsample_pred).permute(0, 2, 3, 1)
+
+
+def colorize_labels(labels, palette: np.ndarray = MAPILLARY_19_PALETTE) -> torch.Tensor:
+    """Label map -> RGB via the dataset palette (ref node:114,
+    mapillary_visualization.py:70-89)."""
+    return apply_color_map(torch.as_tensor(labels), palette)
+
+
+def preprocess_frame(image, undistort_map=None, image_scale: float = 1.0,
+                     device: DeviceLike = "cuda") -> torch.Tensor:
+    """Node-side frame prep: undistort + INTER_AREA downscale (ref node:85-96).
+
+    Moves the frame to ``device`` (CUDA unless the caller asks for the CPU)
+    and runs there; returns the scaled uint8 image ready for segmentation.
+    """
+    x = torch.as_tensor(image, device=resolve_device(device))
+    if undistort_map is not None:
+        x = undistort(x, torch.as_tensor(undistort_map, device=x.device))
+    if image_scale < 1.0:
+        out_hw = (int(x.shape[0] * image_scale), int(x.shape[1] * image_scale))
+        x = resize_area(x, out_hw)
+    return x
+
+
+def postprocess_labels(labels, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize the label map back to full resolution, INTER_NEAREST (ref node:109)."""
+    return resize_nearest(torch.as_tensor(labels), out_hw)

@@ -21,9 +21,14 @@ needed.  ``duplicate_semantics='accumulate'`` adds 1.0 per point with
 ``index_add_``; counts below 2**24 are exact in f32, so the result does not
 depend on the order of the atomics.
 
-Not ported yet: confidence weighting, ``update_map_planar`` and the sort /
-fold method switches, which choose between TPU formulations of the same
-update.
+Confidence weighting (``weights``): a deduped (cell, class) hit carries the
+largest confidence of its points, written with ``scatter_reduce_`` ``amax``
+in place of the ``index_put_`` of 1.0; per-point mode sums the
+confidences.  K2 folds the result either way, and with every weight at 1
+the grid equals the unweighted one exactly.
+
+Not ported yet: ``update_map_planar`` and the sort / fold method switches,
+which choose between TPU formulations of the same update.
 """
 from __future__ import annotations
 
@@ -255,6 +260,7 @@ class SemanticMappingEngine:
         image_is_class_id: bool = False,
         image_full_hw=None,
         distorted_image: bool = False,
+        return_pixels: bool = False,
     ):
         """Closure computing per-point (cell, cls, vis, upd).
 
@@ -265,6 +271,9 @@ class SemanticMappingEngine:
         ``distorted_image=True`` means the label image is in the raw
         (distorted) camera frame: the plumb-bob forward model is applied to
         the projected points instead of resampling the image.
+        ``return_pixels=True`` appends the (downscaled) gather rows and
+        columns ``gy, gx``, for callers that fetch more per-point data
+        (the network's confidence).
         """
         cam = self.cameras[camera_id]
         P = self._const(cam.P)
@@ -332,15 +341,18 @@ class SemanticMappingEngine:
             on_grid = (cell_rc[0] >= 0) & (cell_rc[0] < h) & (cell_rc[1] >= 0) & (cell_rc[1] < w)
             cell = cell_rc[0] * w + cell_rc[1]
             upd = vis & on_grid & (cls >= 0)
+            if return_pixels:
+                return cell, cls, vis, upd, gy.long(), gx.long()
             return cell, cls, vis, upd
 
         return pointwise
 
     def _build_dense_update(self):
-        """Closure ``update(grid, cell, cls, intensity, upd, gh, gw)``.
+        """Closure ``update(grid, cell, cls, intensity, upd, gh, gw, weights=None)``.
 
         ``grid`` is a contiguous planar (C, gh, gw) slab, updated in place;
-        ``cell`` indexes it as ``row * gw + col``.
+        ``cell`` indexes it as ``row * gw + col``.  ``weights`` (N,) scales
+        each point's observation (confidence weighting).
         """
         evidence = self.evidence
         num_cls = evidence.shape[0]
@@ -348,7 +360,7 @@ class SemanticMappingEngine:
         use_intensity = self.use_intensity and lane >= 0
         dedupe = self.duplicate_semantics == "reference"
 
-        def _dense_update(grid, cell, cls, intensity, upd, gh, gw):
+        def _dense_update(grid, cell, cls, intensity, upd, gh, gw, weights=None):
             n = gh * gw
             dev = grid.device
             # (cell, class) hit -> class * n + cell in the planar layout;
@@ -358,7 +370,15 @@ class SemanticMappingEngine:
                 torch.full_like(cell, num_cls * n, dtype=torch.long),
             )
             obs = torch.zeros(num_cls * n + 1, dtype=torch.float32, device=dev)
-            if dedupe:
+            if weights is not None:
+                # a deduped hit carries its strongest point's confidence; the
+                # spare slot takes whatever the non-updating points carry
+                w = weights.to(device=dev, dtype=torch.float32)
+                if dedupe:
+                    obs.scatter_reduce_(0, key, w, "amax", include_self=False)
+                else:
+                    obs.index_add_(0, key, w)
+            elif dedupe:
                 obs.index_put_((key,), torch.ones((), device=dev))
             else:
                 obs.index_add_(0, key, torch.ones(key.shape, device=dev))
@@ -383,7 +403,8 @@ class SemanticMappingEngine:
         return _dense_update
 
     def _build_update(self):
-        """Closure applying the frame update to the full (C, H, W) grid.
+        """Closure ``update(grid, cell, cls, intensity, upd, weights=None)``
+        applying the frame update to the full (C, H, W) grid.
 
         Windowed mode: the update runs on a pose-centered (C, win, win) slab,
         so its cost is independent of the grid size.  The slab's corner is
@@ -397,7 +418,7 @@ class SemanticMappingEngine:
         win_r = min(win, h)
         win_c = min(win, w)
 
-        def _window_update(grid, cell, cls, intensity, upd):
+        def _window_update(grid, cell, cls, intensity, upd, weights=None):
             row = cell // w
             col = cell % w
             n_upd = torch.clamp(upd.sum(), min=1)
@@ -412,14 +433,15 @@ class SemanticMappingEngine:
             in_win = (lr >= 0) & (lr < win_r) & (lc >= 0) & (lc < win_c)
             local_cell = lr * win_c + lc
             slab = grid[:, r0 : r0 + win_r, c0 : c0 + win_c].contiguous()
-            _dense_update(slab, local_cell, cls, intensity, upd & in_win, win_r, win_c)
+            _dense_update(slab, local_cell, cls, intensity, upd & in_win, win_r, win_c,
+                          weights=weights)
             grid[:, r0 : r0 + win_r, c0 : c0 + win_c] = slab
             return grid
 
         if windowed:
             return _window_update
-        return lambda grid, cell, cls, intensity, upd: _dense_update(
-            grid, cell, cls, intensity, upd, h, w
+        return lambda grid, cell, cls, intensity, upd, weights=None: _dense_update(
+            grid, cell, cls, intensity, upd, h, w, weights=weights
         )
 
     def _build_step(self, camera_id: str, pcd_in_velodyne_frame: bool):

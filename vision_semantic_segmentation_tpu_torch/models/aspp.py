@@ -2,9 +2,15 @@
 
 Port of ``vision_semantic_segmentation_tpu/models/aspp.py`` (ref
 aspp.py:11-103): a plain conv branch, k-1 depthwise-separable atrous
-branches (their depthwise 3x3s run K3), and a global average-pool branch
-upsampled with align_corners=True; concatenated, then fused by a 1x1 conv +
-dropout.
+branches, and a global average-pool branch upsampled with
+align_corners=True; concatenated, then fused by a 1x1 conv + dropout.
+
+The atrous branches' depthwise 3x3s all read the same input, so they run
+first, together: two or more as one K4 call, a single one as K3 (see
+``layers.depthwise_convs``); a branch whose depthwise conv does not fit
+the kernels runs ``F.conv2d`` inside its own module.  Each branch then goes
+on through its own BatchNorm, ReLU and pointwise conv.  Module and
+parameter names are the reference's, so state dicts load ``strict=True``.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import ConvBNReLU, DepthwiseSeparableConv
+from .layers import ConvBNReLU, DepthwiseSeparableConv, depthwise_convs
 from .resize import resize_nchw
 
 
@@ -50,8 +56,23 @@ class ASPP(nn.Module):
         self.conv = ConvBNReLU(sum(atrous_channels) + 256, out_channels, 1, bn=True, relu=True)
         self.dropout = nn.Dropout(dropout)
 
+    def fused_branches(self) -> list:
+        """Indices of the branches whose depthwise conv runs through K3/K4."""
+        return [
+            i for i, b in enumerate(self.module_pyramid)
+            if isinstance(b, DepthwiseSeparableConv) and b.depthwise_cnn.conv.uses_k3()
+        ]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = [branch(x) for branch in self.module_pyramid]
+        fused = self.fused_branches()
+        depthwise = {}
+        if fused:
+            convs = [self.module_pyramid[i].depthwise_cnn.conv for i in fused]
+            depthwise = dict(zip(fused, depthwise_convs(convs, x)))
+        outs = [
+            branch.finish(depthwise[i]) if i in depthwise else branch(x)
+            for i, branch in enumerate(self.module_pyramid)
+        ]
         pooled = self.global_avg_pool(x)
         outs.append(resize_nchw(pooled, tuple(outs[0].shape[-2:])))
         return self.dropout(self.conv(torch.cat(outs, dim=1)))

@@ -1,7 +1,10 @@
-"""flax variables -> torch ``state_dict``.
+"""flax variables -> torch ``state_dict``, and the weight files.
 
 Inverse of ``vision_semantic_segmentation_tpu/models/convert.py::
-torch_state_dict_to_flax``.  The port's modules use the reference torch
+torch_state_dict_to_flax``.  :func:`load_weights` reads a reference
+``.pth`` checkpoint or the JAX package's flat ``.npz`` archive of flax
+variables (keys ``params/backbone/conv1/kernel``, ...) into a state dict.
+The port's modules use the reference torch
 names, so a reference ``.pth`` loads with ``load_state_dict(strict=True)``
 and a flax tree from the JAX package crosses over exactly.  Leaves may be
 numpy or any array type ``np.asarray`` accepts.
@@ -55,8 +58,9 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = OrderedDict()
 
     def put(path: Tuple[str, ...], leaf: str, value: np.ndarray) -> None:
+        # np.ascontiguousarray would turn a 0-d array into shape (1,)
         sd[".".join(_split_indices(path) + (leaf,))] = torch.from_numpy(
-            np.ascontiguousarray(value)
+            np.array(value, order="C", copy=True)
         )
 
     for path, value in _leaves(variables.get("params", {})):
@@ -88,3 +92,30 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"Unrecognized flax batch_stats leaf: {'/'.join(path)}")
     return sd
+
+
+def load_npz_variables(path: str) -> Dict[str, Any]:
+    """A flat ``.npz`` of flax variables (``save_npz``'s format) as a nested dict."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """``cfg.MODEL.WEIGHT`` -> state dict: a ``.pth`` checkpoint or a ``.npz``.
+
+    A reference checkpoint stores the model under ``"model"`` (ref
+    semantic_segmentation.py:31-32); a bare state dict loads as it is.
+    """
+    if path.endswith(".pth"):
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(ckpt, Mapping) and "model" in ckpt:
+            ckpt = ckpt["model"]
+        return dict(ckpt)
+    return flax_to_state_dict(load_npz_variables(path))

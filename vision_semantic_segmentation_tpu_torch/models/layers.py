@@ -6,25 +6,26 @@ and a depthwise-separable variant (ref core/nn/modules/conv.py:48-146).
 Modules are NCHW ``nn.Module``s with the reference torch parameter names
 (``conv``, ``bn``, ``depthwise_cnn``, ``pointwise_cnn``), so a reference
 state dict loads with ``strict=True``.  Run them in ``channels_last``
-memory: cuDNN prefers it, and K3 then reads the activation as NHWC without
+memory: cuDNN prefers it, and K3/K4 then read the activation as NHWC without
 a copy.
 
 Depthwise 3x3 convs with stride 1 and padding == dilation (ASPP's atrous
-branches) run through K3 (``ops/kernels/depthwise.py``); other depthwise
-convs (the decoder's unpadded refine convs) and grouped convs are plain
+branches) run through K3 (``ops/kernels/depthwise.py``), or several of them
+over one input through K4 (:func:`depthwise_convs`); other depthwise convs
+(the decoder's unpadded refine convs) and grouped convs are plain
 ``F.conv2d``, as the JAX package runs them outside any Pallas kernel.  The
 TPU-only block-diagonal and tile-diagonal grouped forms are not ported.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.depthwise import depthwise3x3_dilated
+from ..ops.kernels.depthwise import aspp_depthwise3x3_multi, depthwise3x3_dilated
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -64,17 +65,31 @@ class DepthwiseConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.uses_k3():
             return super().forward(x)
-        kernel = self.weight.permute(2, 3, 1, 0)  # (C, 1, 3, 3) -> (3, 3, 1, C)
-        outs = [
-            depthwise3x3_dilated(
-                xi[None].permute(0, 2, 3, 1).contiguous(), kernel, self.dilation[0]
-            ).permute(0, 3, 1, 2)
-            for xi in x
-        ]
-        y = outs[0] if len(outs) == 1 else torch.cat(outs)
-        if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1)
-        return y
+        return depthwise_convs([self], x)[0]
+
+
+def depthwise_convs(convs: Sequence[DepthwiseConv2d], x: torch.Tensor) -> List[torch.Tensor]:
+    """Several depthwise convs that pass ``uses_k3`` over one NCHW
+    (channels-last) input.
+
+    One conv runs K3; two or more run as one K4 call per frame, which reads
+    ``x`` once for all of them.  Returns one NCHW output per conv.
+    """
+    kernels = [c.weight.permute(2, 3, 1, 0) for c in convs]  # (C, 1, 3, 3) -> (3, 3, 1, C)
+    dilations = [c.dilation[0] for c in convs]
+    per_frame = []
+    for xi in x:
+        xi = xi[None].permute(0, 2, 3, 1).contiguous()  # a view for channels-last x
+        if len(convs) == 1:
+            per_frame.append([depthwise3x3_dilated(xi, kernels[0], dilations[0])])
+        else:
+            per_frame.append(aspp_depthwise3x3_multi(xi, kernels, dilations))
+    outs = []
+    for b, conv in enumerate(convs):
+        ys = [frame[b] for frame in per_frame]
+        y = (ys[0] if len(ys) == 1 else torch.cat(ys)).permute(0, 3, 1, 2)
+        outs.append(y if conv.bias is None else y + conv.bias.view(1, -1, 1, 1))
+    return outs
 
 
 class ConvBNReLU(nn.Module):
@@ -118,7 +133,10 @@ class ConvBNReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pre_pad is not None:
             x = F.pad(x, self.pre_pad)
-        x = self.conv(x)
+        return self.post_conv(self.conv(x))
+
+    def post_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm and ReLU, for a caller that ran ``self.conv`` itself."""
         if self.bn is not None:
             x = self.bn(x)
         if self.relu:
@@ -153,3 +171,7 @@ class DepthwiseSeparableConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise_cnn(self.depthwise_cnn(x))
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        """The rest of the branch after its depthwise conv's output ``y``."""
+        return self.pointwise_cnn(self.depthwise_cnn.post_conv(y))

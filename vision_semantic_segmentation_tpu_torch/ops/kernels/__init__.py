@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for Hopper, one per TPU kernel on the main path.
+"""Hand-written CUDA kernels for Hopper, one per TPU kernel of the repo.
 
 ==========  ==========================================  =====================
 wrapper     replaces (JAX package)                      CUDA source
@@ -6,13 +6,22 @@ wrapper     replaces (JAX package)                      CUDA source
 K1 render   ops/pallas/render.py::render_bev_map_fused  csrc/render.cu
 K2 fold     ops/pallas/fold.py::evidence_fold_add       csrc/fold.cu
 K3 dw       ops/pallas/depthwise.py::depthwise3x3_dil.  csrc/depthwise.cu
+K4 aspp     ops/pallas/depthwise.py::aspp_depthwise3x3  csrc/aspp_depthwise.cu
+P1 hoisted  scripts/probe_depthwise_hoist.py::hoisted   csrc/depthwise_hoist.cu
+P2 variant  scripts/probe_depthwise_hoist.py::hoisted_  csrc/depthwise_hoist.cu
 ==========  ==========================================  =====================
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises).
 """
 from ._lib import CudaKernel, build_all, kernels, plain_versions, reset_launch_counts
-from .depthwise import depthwise3x3_dilated, depthwise3x3_dilated_plain
+from .depthwise import (
+    aspp_depthwise3x3_multi,
+    aspp_depthwise3x3_multi_plain,
+    depthwise3x3_dilated,
+    depthwise3x3_dilated_plain,
+)
+from .depthwise_hoist import hoisted, hoisted_plain, hoisted_variant
 from .fold import evidence_fold_add_, evidence_fold_add_plain
 from .render import (
     pack_colors,
@@ -27,10 +36,15 @@ __all__ = [
     "kernels",
     "plain_versions",
     "reset_launch_counts",
+    "aspp_depthwise3x3_multi",
+    "aspp_depthwise3x3_multi_plain",
     "depthwise3x3_dilated",
     "depthwise3x3_dilated_plain",
     "evidence_fold_add_",
     "evidence_fold_add_plain",
+    "hoisted",
+    "hoisted_plain",
+    "hoisted_variant",
     "pack_colors",
     "render_bev_map_fused",
     "render_bev_map_plain",

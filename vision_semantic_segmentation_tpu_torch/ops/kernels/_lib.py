@@ -9,6 +9,9 @@ a hash of its source and flags, so an edited source rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source,
 all at once, and waits for them together.
 
+A source may carry several C entry points, each its own
+:class:`CudaKernel`; they share one library and one ``nvcc``.
+
 Each :class:`CudaKernel` keeps ``launches``, the number of kernel launches
 its wrapper made.  ``plain_on_cuda`` is a test hook: while it is set (see
 :func:`plain_versions`), the wrapper runs its plain PyTorch version on a CUDA
@@ -110,26 +113,29 @@ def build_all(which: Optional[Iterable[CudaKernel]] = None) -> Dict[str, float]:
     """
     todo = list(which) if which is not None else kernels()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
+    started = {}  # library path -> (kernels sharing it, nvcc, tmp file, start)
     seconds: Dict[str, float] = {}
     for k in todo:
         out = k.library_path()
         if out.exists():
             seconds[k.name] = 0.0
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(k.source_path)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        started[k.name] = (k, proc, tmp, out, time.perf_counter())
+        elif out in started:  # another entry point of the same source
+            started[out][0].append(k)
+        else:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(k.source_path)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            started[out] = ([k], proc, tmp, time.perf_counter())
     failures = []
-    for name, (k, proc, tmp, out, t0) in started.items():
+    for out, (sharing, proc, tmp, t0) in started.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        k.build_log = log
+        for k in sharing:
+            seconds[k.name] = time.perf_counter() - t0
+            k.build_log = log
         if proc.returncode != 0:
-            failures.append(f"{k.source}: nvcc exit {proc.returncode}\n{log}")
+            failures.append(f"{sharing[0].source}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failures:
@@ -166,6 +172,22 @@ def uses_plain(kernel: CudaKernel, t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{kernel.name}: unsupported device {t.device}")
     return kernel.plain_on_cuda
+
+
+def refuse_grad(kernel: CudaKernel, *tensors: torch.Tensor) -> None:
+    """Raise where the kernel route would silently cut the autograd graph.
+
+    The CUDA kernels have no backward yet (it comes with the training
+    slice), and an output filled through ``ctypes`` has no ``grad_fn``.  On
+    the CPU the plain version is differentiable, so returning such a tensor
+    would make the two devices give different gradients.  Wrappers call this
+    on the kernel route only.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel.name}: the CUDA kernel has no backward; run it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

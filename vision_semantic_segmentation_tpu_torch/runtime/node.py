@@ -1,0 +1,300 @@
+"""The online nodes, wired over the in-process topic bus.
+
+Port of ``vision_semantic_segmentation_tpu/runtime/node.py`` (the
+reference's ROS layer):
+
+* :class:`SegmentationNode` (ref vision_semantic_segmentation_node.py:49-221):
+  camera frame -> undistort -> scale -> network -> nearest resize ->
+  colourise -> publish ``/cameraX/semantic``.
+* :class:`MappingNode` (ref mapping.py:39-355), cloud mode: semantic image +
+  pose + cloud -> nearest-stamp sync -> engine step (K2) -> republish the
+  labelled cloud; finalize renders the map through K1.
+* :class:`FusedOnlineNode`: raw frame + pose + cloud -> one
+  :meth:`FusedFramePipeline.step` per frame, with the sync, drop accounting
+  and finalize of :class:`MappingNode`.
+
+Topic names are the reference's.  Callbacks run inline on ``bus.publish``.
+Images, labelled clouds and the grid stay on the nodes' device (torch
+tensors); the finalized map is host numpy.  Not ported yet, and refused
+with ``NotImplementedError``: the crosswalk/road hull markers
+(``publish_hulls``; ROADMAP queue 1 item 7), a TF tree, the planar
+``DEPTH_METHOD`` (``engine.update_map_planar``; item 6) and the threaded
+executor (``async_bus.py``; item 7).
+"""
+from __future__ import annotations
+
+import os.path as osp
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config.defaults import resolve_output_dir
+from ..device import DeviceLike
+from ..geometry.camera import get_camera
+from ..inference.predictor import (
+    SemanticSegmentation,
+    colorize_labels,
+    postprocess_labels,
+    preprocess_frame,
+)
+from ..mapping.engine import SemanticMappingEngine, pad_points
+from ..models.convert import flax_to_state_dict, load_weights
+from ..ops.colormap import palette_from_cfg
+from ..ops.kernels.render import render_bev_map_fused, unpack_rgba_image
+from ..utils.file_io import makedirs
+from ..utils.logger import MyLogger
+from .bus import Message, TopicBus, nearest_stamp_index
+from .io import FrameRecord, save_frames
+from .pipeline import FusedFramePipeline
+from .replay import write_png
+
+CLOUD_TOPICS = {"points_map": "/reduced_map", "points_raw": "/points_raw"}
+
+
+def _refuse_executor(executor) -> None:
+    if executor is not None:
+        raise NotImplementedError(
+            "executor: the threaded node executor (runtime/async_bus.py) is not ported "
+            "(ROADMAP queue 1 item 7); the nodes run inline on the bus")
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class SegmentationNode:
+    """Camera image -> semantic RGB image (ref node:49-221).
+
+    Subscribes ``/cameraX/image_raw``; publishes ``/cameraX/semantic`` as a
+    uint8 (H, W, 3) tensor on the predictor's device.  The
+    ``/estimated_plane`` subscription serves only the hull markers and is
+    not made.
+    """
+
+    def __init__(self, cfg, bus: TopicBus, predictor: Optional[SemanticSegmentation] = None,
+                 cameras: Tuple[str, ...] = ("camera1", "camera6"),
+                 publish_hulls: bool = False, executor=None, device: DeviceLike = "cuda"):
+        if publish_hulls:
+            raise NotImplementedError(
+                "publish_hulls: the hull markers need Camera.pixel_to_ray, geometry/plane.py "
+                "and utils/markers.py, which are not ported (ROADMAP queue 1 item 7)")
+        _refuse_executor(executor)
+        self.cfg = cfg
+        self.bus = bus
+        net_cfg = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+        self.image_scale = float(cfg.VISION_SEM_SEG.IMAGE_SCALE)
+        self.predictor = predictor or SemanticSegmentation(net_cfg, device=device)
+        self.device = self.predictor.device
+        # colours from the DATASET_CONFIG labels JSON when set (ref node:62-63)
+        self.palette = palette_from_cfg(net_cfg)
+        self.upsample_pred = bool(cfg.VISION_SEM_SEG.get("UPSAMPLE_PRED", False))
+        self._undistort_maps: Dict[str, torch.Tensor] = {}
+        for cam in cameras:
+            if cfg.VISION_SEM_SEG.get("UNDISTORT", True):
+                try:
+                    maps = get_camera(cam).undistort_maps()
+                except KeyError:  # no calibration: frames pass through
+                    pass
+                else:
+                    self._undistort_maps[cam] = torch.from_numpy(maps).to(self.device)
+            bus.subscribe(f"/{cam}/image_raw", self.image_callback)
+
+    def image_callback(self, msg: Message) -> None:
+        """Per-frame path (ref node:74-136)."""
+        camera = msg.frame_id
+        full_hw = (msg.data.shape[0], msg.data.shape[1])
+        x = preprocess_frame(msg.data, undistort_map=self._undistort_maps.get(camera),
+                             image_scale=self.image_scale, device=self.device)
+        labels = self.predictor.labels(x, upsample_pred=self.upsample_pred)
+        semantic_rgb = colorize_labels(postprocess_labels(labels, full_hw), self.palette)
+        self.bus.publish(f"/{camera}/semantic", semantic_rgb, stamp=msg.stamp, frame_id=camera)
+
+
+class MappingNode:
+    """Semantic image + pose + cloud -> global BEV map (ref mapping.py:39-355).
+
+    Cloud mode only (``MAPPING.DEPTH_METHOD`` ``points_map`` or
+    ``points_raw``).
+    """
+
+    #: image topics this node consumes; FusedOnlineNode takes raw frames
+    IMAGE_TOPICS = ("/camera1/semantic", "/camera6/semantic")
+
+    def __init__(self, cfg, bus: TopicBus, engine: Optional[SemanticMappingEngine] = None,
+                 record_inputs: bool = False, tf_tree=None, executor=None,
+                 device: DeviceLike = "cuda"):
+        if tf_tree is not None:
+            raise NotImplementedError(
+                "tf_tree: TF-driven camera extrinsics and the local_map frame are not "
+                "ported (ROADMAP queue 1 item 7)")
+        _refuse_executor(executor)
+        self.depth_method = cfg.MAPPING.DEPTH_METHOD
+        self.pcd_topic = CLOUD_TOPICS.get(self.depth_method)
+        if self.pcd_topic is None:
+            raise NotImplementedError(
+                f"MAPPING.DEPTH_METHOD={self.depth_method!r}: the planar path needs "
+                "engine.update_map_planar, which is not ported (ROADMAP queue 1 item 6); "
+                "use points_map or points_raw")
+        self.cfg = cfg
+        self.bus = bus
+        self.engine = engine or SemanticMappingEngine(cfg, device=device)
+        self.grid: Optional[torch.Tensor] = None
+        self.test_cut_time = cfg.TEST_END_TIME
+        self.label_colors = np.array(cfg.LABEL_COLORS, dtype=np.uint8)
+        self.record_inputs = record_inputs
+        self.input_list: List[FrameRecord] = []
+        self.save_map_to_file = False
+        self.finalized_map: Optional[np.ndarray] = None
+        self.eval_result: Optional[dict] = None
+
+        output_dir = resolve_output_dir(cfg.OUTPUT_DIR, cfg.TASK_NAME)
+        self.logger = MyLogger("mapping", save_dir=output_dir, use_timestamp=False)
+        self.output_dir = self.logger.save_dir
+
+        # time-sync queues (ref mapping.py:91-104); the reference drops
+        # frames silently when a queue is empty (ref mapping.py:281,284):
+        # here they are counted and logged
+        self.pose_queue: List[Message] = []
+        self.pcd_queue: List[Message] = []
+        self.dropped_frames = 0
+        self.fused_frames = 0
+
+        bus.subscribe("/current_pose", self.pose_callback)
+        for topic in self.IMAGE_TOPICS:
+            bus.subscribe(topic, self.image_callback)
+        bus.subscribe(self.pcd_topic, self.pcd_callback)
+
+    # -- callbacks -----------------------------------------------------------
+    def pcd_callback(self, msg: Message) -> None:
+        self.pcd_queue.append(msg)
+
+    def pose_callback(self, msg: Message) -> None:
+        self.pose_queue.append(msg)
+        if msg.stamp >= self.test_cut_time:
+            self.save_map_to_file = True
+
+    @staticmethod
+    def _sync(queue: List[Message], target: float) -> Message:
+        idx = nearest_stamp_index([m.stamp for m in queue], target)
+        # select before trimming (ref :204-216), then drop everything before
+        # the bracketing window (ref :210-217)
+        msg = queue[idx]
+        del queue[: max(idx - 1, 0)]
+        return msg
+
+    def _drop(self, stamp: float, what: str) -> None:
+        self.dropped_frames += 1
+        self.logger.log(f"Dropping frame at {stamp}: no {what} in queue "
+                        f"({self.dropped_frames} dropped so far)", level="warning")
+
+    def image_callback(self, msg: Message) -> None:
+        """Fuse one frame (ref mapping.py:261-355)."""
+        if not self.pcd_queue:
+            return self._drop(msg.stamp, "point cloud")
+        pcd_msg = self._sync(self.pcd_queue, msg.stamp)
+        if not self.pose_queue:
+            return self._drop(msg.stamp, "pose")
+        pose_msg = self._sync(self.pose_queue, msg.stamp)
+
+        if self.grid is None:
+            self.grid = self.engine.init_grid()
+        position, quaternion = pose_msg.data
+        pcd = _host(pcd_msg.data).astype(np.float32)
+        if self.record_inputs:
+            self.input_list.append(FrameRecord(
+                pcd=pcd, pcd_frame_id=pcd_msg.frame_id, semantic_image=_host(msg.data),
+                position=_host(position), quaternion=_host(quaternion),
+                camera=msg.frame_id, stamp=msg.stamp,
+            ))
+        pcd_pad, valid = pad_points(pcd, self.engine.point_bucket)
+        labeled = self._fuse_cloud(msg, pcd_pad, valid, position, quaternion, pcd_msg.frame_id)
+        self.fused_frames += 1
+        if labeled is not None:
+            # the labelled cloud for downstream consumers (ref :316-317)
+            self.bus.publish("/semantic_point_cloud", (pcd_pad, *labeled),
+                             stamp=msg.stamp, frame_id=pcd_msg.frame_id)
+        if self.save_map_to_file:
+            self.finalize()
+
+    def _fuse_cloud(self, msg, pcd_pad, valid, position, quaternion, pcd_frame_id):
+        """One cloud-mode fusion; returns the labelled cloud ``(point_cls,
+        point_vis)``, or None where the fusion makes none (FusedOnlineNode)."""
+        self.grid, point_cls, point_vis = self.engine.step(
+            self.grid, pcd_pad, valid, msg.data, position, quaternion,
+            camera=msg.frame_id, pcd_frame_id=pcd_frame_id,
+        )
+        return point_cls, point_vis
+
+    # -- finalization (ref mapping.py:323-355) -------------------------------
+    def finalize(self) -> np.ndarray:
+        """Smooth + render (K1) + save ``global_map.png`` + evaluate + publish."""
+        if self.record_inputs and self.cfg.MAPPING.INPUT_DIR:
+            makedirs(self.cfg.MAPPING.INPUT_DIR, exist_ok=True)
+            save_frames(self.input_list, osp.join(self.cfg.MAPPING.INPUT_DIR, "input_list.npz"))
+        if self.grid is None:
+            self.grid = self.engine.init_grid()
+        color_map = unpack_rgba_image(render_bev_map_fused(self.grid, self.label_colors))
+        color_map = color_map.cpu().numpy()
+
+        makedirs(self.output_dir, exist_ok=True)
+        output_file = osp.join(self.output_dir, "global_map.png")
+        write_png(output_file, color_map)
+        self.logger.log(f"Saving image to {output_file}")
+        if self.cfg.GROUND_TRUTH_DIR:
+            from ..evaluation.map_eval import MapEvaluator
+
+            evaluator = MapEvaluator(ground_truth_dir=self.cfg.GROUND_TRUTH_DIR,
+                                     logger=self.logger)
+            self.eval_result = evaluator.test_single_map(color_map)
+
+        self.bus.publish("/semantic_local_map", color_map)
+        self.finalized_map = color_map
+        self.save_map_to_file = False
+        return color_map
+
+
+class FusedOnlineNode(MappingNode):
+    """One fused step per frame: raw camera frame + pose + cloud -> grid,
+    through :meth:`FusedFramePipeline.step` (undistort or point distortion,
+    scale, forward with K4, projection, update with K2).
+
+    Against the two-node topology: no ``/cameraX/semantic`` republish, no
+    ``/semantic_point_cloud`` labelled cloud, and no RGB colourise /
+    palette-match round trip.  Sync, drop accounting, ``TEST_END_TIME``
+    finalization and the output files are :class:`MappingNode`'s.
+    """
+
+    IMAGE_TOPICS = ("/camera1/image_raw", "/camera6/image_raw")
+
+    def __init__(self, cfg, bus: TopicBus, pipeline: Optional[FusedFramePipeline] = None,
+                 state_dict=None, variables=None,
+                 engine: Optional[SemanticMappingEngine] = None,
+                 device: DeviceLike = "cuda", **kwargs):
+        """``pipeline`` injects a prebuilt FusedFramePipeline; otherwise one
+        is built from ``state_dict``, ``variables`` (flax, as numpy) or the
+        network config's ``MODEL.WEIGHT``, with the distortion handled on
+        the projected points when ``VISION_SEM_SEG.UNDISTORT`` is set."""
+        if pipeline is None:
+            if state_dict is None:
+                weight = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.WEIGHT
+                if variables is not None:
+                    state_dict = flax_to_state_dict(variables)
+                elif weight:
+                    state_dict = load_weights(weight)
+                else:
+                    raise ValueError("MODEL.WEIGHT is empty and no weights given")
+            undistort = bool(cfg.VISION_SEM_SEG.get("UNDISTORT", True))
+            pipeline = FusedFramePipeline(
+                cfg, state_dict, engine=engine,
+                distortion="points" if undistort else "none", device=device,
+            )
+        self.pipeline = pipeline
+        super().__init__(cfg, bus, engine=pipeline.engine, device=pipeline.device, **kwargs)
+
+    def _fuse_cloud(self, msg, pcd_pad, valid, position, quaternion, pcd_frame_id):
+        self.grid, _ = self.pipeline.step(
+            self.grid, msg.data, pcd_pad, valid, position, quaternion,
+            camera=msg.frame_id, pcd_frame_id=pcd_frame_id,
+        )
+        return None

@@ -3,18 +3,18 @@
 Port of ``vision_semantic_segmentation_tpu/runtime/pipeline.py``: raw uint8
 camera frame + point cloud + pose -> updated BEV grid,
 
-    scale -> normalize -> DeepLab forward -> argmax -> network-class ->
-    map-channel table -> point projection -> label gather -> evidence update
+    undistort -> scale -> normalize -> DeepLab forward -> argmax ->
+    network-class -> map-channel table -> point projection -> label
+    gather -> evidence update
 
 The class-id shortcut skips the reference's RGB colourise/palette-match
 round trip while staying identical: the network-class -> channel lookup
 composes the palette write (ref node:114) with the engine's palette match
 (ref mapping.py:414-424).
 
-On the card the forward's ASPP depthwise convs run K3, the update's fold
-runs K2, and ``MappingReplay.finalize`` renders with K1.  Not ported yet:
-``distortion='image'`` (needs ``ops/warp.py``), confidence weighting, and
-``UPSAMPLE_PRED``.
+On the card the forward's ASPP atrous depthwise convs run K4 (one call for
+all branches), the update's fold runs K2, and ``MappingReplay.finalize``
+renders with K1.
 """
 from __future__ import annotations
 
@@ -24,12 +24,11 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..inference.predictor import IMAGENET_MEAN, IMAGENET_STD
 from ..mapping.engine import SemanticMappingEngine
 from ..models.build import build_model
 from ..ops.resize import resize_area
-
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+from ..ops.warp import undistort
 
 
 def network_to_channel_table(cfg, num_network_classes: int = 19) -> np.ndarray:
@@ -54,6 +53,7 @@ class FusedFramePipeline:
         engine: Optional[SemanticMappingEngine] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         distortion: str = "none",
+        confidence_weighting: bool = False,
         device: DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -61,16 +61,26 @@ class FusedFramePipeline:
             state_dict: network weights (``models/convert.py`` turns the JAX
               package's variables into one); None draws them from
               ``generator``.
-            distortion: ``'none'`` — frames are already rectified/pinhole;
+            distortion: how lens distortion is handled per frame:
+              ``'none'`` — frames are already rectified/pinhole;
+              ``'image'`` — undistort each raw frame through the camera's
+              inverse map before the downscale (the reference's dataflow,
+              ref node:85-87);
               ``'points'`` — segment the raw frame and apply the plumb-bob
               forward model to the projected points (engine
               ``distorted_image`` mode).
+            confidence_weighting: scale each point's evidence by the
+              network's softmax confidence (of the winning class) at its
+              pixel; a deduped (cell, class) hit carries its strongest
+              point's confidence, and with every confidence at 1 the update
+              is the unweighted one.
             compute_dtype: the network's dtype (bf16 default, or f32).
         """
-        if distortion not in ("none", "points"):
-            raise ValueError(f"distortion {distortion!r} is not ported (none|points)")
+        if distortion not in ("none", "image", "points"):
+            raise ValueError(f"unknown distortion {distortion!r} (none|image|points)")
         self.device = resolve_device(device)
         self.distortion = distortion
+        self.confidence_weighting = bool(confidence_weighting)
         self.cfg = cfg
         self.engine = engine or SemanticMappingEngine(cfg, device=self.device)
         if self.engine.device != self.device:
@@ -82,6 +92,16 @@ class FusedFramePipeline:
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.image_scale = float(cfg.VISION_SEM_SEG.IMAGE_SCALE)
+        # VISION_SEM_SEG.UPSAMPLE_PRED: bilinearly upsample the logits to the
+        # (scaled) input size before the argmax; the engine's
+        # nearest-downscaled gather indices handle either label size
+        self.upsample_pred = bool(cfg.VISION_SEM_SEG.get("UPSAMPLE_PRED", False))
+        self._undistort_maps: Dict[str, torch.Tensor] = {}
+        if distortion == "image":
+            for name, cam in self.engine.cameras.items():
+                if cam.dist is not None and cam.im_size is not None:
+                    self._undistort_maps[name] = torch.from_numpy(
+                        cam.undistort_maps()).to(self.device)
         self.channel_table = torch.as_tensor(
             network_to_channel_table(cfg, net_cfg.DATASET.NUM_CLASSES), device=self.device
         )
@@ -94,16 +114,19 @@ class FusedFramePipeline:
         return self.engine.init_grid()
 
     @torch.no_grad()
-    def segment(self, frame_u8: torch.Tensor) -> torch.Tensor:
+    def segment(self, frame_u8: torch.Tensor, camera: str = "camera1") -> torch.Tensor:
         """Raw (H, W, 3) uint8 frame -> (1, C, h', w') logits (ref node:82-110)."""
         x = frame_u8
+        undistort_map = self._undistort_maps.get(camera)
+        if undistort_map is not None:
+            x = undistort(x, undistort_map)
         if self.image_scale < 1.0:
             h, w = frame_u8.shape[0], frame_u8.shape[1]
             x = resize_area(x, (int(h * self.image_scale), int(w * self.image_scale)))
         xf = (x.float() / 255.0 - self._mean) / self._std
         # (H, W, 3) is already channels-last memory for the NCHW view
         xf = xf.permute(2, 0, 1)[None].to(self.compute_dtype)
-        return self.model(xf, upsample_pred=False)
+        return self.model(xf, upsample_pred=self.upsample_pred)
 
     def _pointwise_for(self, camera: str, image_hw, velodyne_frame: bool):
         key = (camera, tuple(image_hw), velodyne_frame)
@@ -112,6 +135,7 @@ class FusedFramePipeline:
                 camera, velodyne_frame, image_is_class_id=True,
                 image_full_hw=tuple(image_hw),
                 distorted_image=(self.distortion == "points"),
+                return_pixels=self.confidence_weighting,
             )
         return self._pointwise[key]
 
@@ -121,7 +145,7 @@ class FusedFramePipeline:
         """Fuse one raw frame into ``grid`` (in place); returns (grid, labels)."""
         as_t = self.engine.as_tensor
         frame_u8 = as_t(frame_u8, torch.uint8)
-        logits = self.segment(frame_u8)
+        logits = self.segment(frame_u8, camera)
         net_labels = torch.argmax(logits, dim=1)[0].to(torch.int32)
         # the channel image stays at decoder resolution; the engine gathers
         # with nearest-downscaled indices
@@ -131,11 +155,20 @@ class FusedFramePipeline:
             camera, frame_u8.shape[:2], pcd_frame_id == "velodyne"
         )
         pcd = as_t(pcd, torch.float32)
-        cell, cls, vis, upd = pointwise(
+        out = pointwise(
             pcd, as_t(valid, torch.bool), channel_img,
             as_t(position, torch.float32), as_t(quaternion, torch.float32),
         )
-        grid = self._apply_update(grid, cell, cls, pcd[3], upd)
+        weights = None
+        if self.confidence_weighting:
+            cell, cls, vis, upd, gy, gx = out
+            # softmax in f32: bf16 logits saturate near 1.0 and would
+            # quantise the evidence weights
+            conf = torch.softmax(logits.float(), dim=1).amax(dim=1)[0]
+            weights = conf[gy, gx]
+        else:
+            cell, cls, vis, upd = out
+        grid = self._apply_update(grid, cell, cls, pcd[3], upd, weights=weights)
         return grid, net_labels
 
     def run_window(self, grid, frames: Mapping[str, object], camera: str = "camera1",
