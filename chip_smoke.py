@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --sweep    # setup, then K4's and K1's launch choices timed
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -13,8 +14,12 @@ Phases (any failure raises, so the exit code is non-zero):
    PyTorch yardstick where one exists, and its least possible time
    (``bound_ms``: the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s f32,
    the H100 SXM data-sheet rates).
-   K4 and P1/P2 must equal their plain versions exactly (K4 also equals K3
-   branch by branch).  Then the variants, from the times those checks took:
+   K1, K4 and P1/P2 must equal their plain versions exactly (K4 also
+   equals K3 branch by branch); K1 and K4 also on edge shapes (W not a
+   multiple of 4, an unaligned grid or input, ragged phases, C = 20 on
+   the scalar path, g = 1, one and eight branches, halo tiles, a cut
+   halo).  Each kernel line prints its share of the bound.  Then the
+   variants, from the times those checks took:
    per ASPP dilation ``F.conv2d(groups=C)``, K3, P1 (which P2 "f32col"
    shares) and P2 "slab", and K4 against three K3 launches (the
    counterpart of scripts/probe_depthwise_hoist.py and
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -106,7 +112,7 @@ def entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_moved, fl
     b_ms, b_by = bound(bytes_moved, flops)
     print(f"kernel {name}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
           f"library {library_ms if library_ms is None else round(library_ms, 4)} ms "
-          f"bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+          f"bound {b_ms * 1e3:.1f} us ({b_by}), {b_ms / ms:.1%} of the bound", flush=True)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -114,20 +120,46 @@ def entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_moved, fl
     }
 
 
-def check_render(gen) -> dict:
-    c, h, w = 5, 2000, 2000
-    grid = torch.rand((c, h, w), generator=gen, device="cuda")
+def render_grid(gen, c, h, w, offset=0):
+    """A (c, h, w) f32 grid with 30 % unexplored cells; ``offset`` elements
+    into a larger buffer (1: a grid that is not 16-byte aligned)."""
+    buf = torch.rand((offset + c * h * w,), generator=gen, device="cuda")
+    grid = buf[offset:].view(c, h, w)
     grid[:, torch.rand((h, w), generator=gen, device="cuda") < 0.3] = 0.0
-    colors = torch.from_numpy(render.pack_colors(LABEL_COLORS)).cuda()
-    out = render.render_bev_map_fused(grid, LABEL_COLORS)
+    return grid
+
+
+def render_exact(what, grid, palette) -> int:
+    colors = torch.from_numpy(render.pack_colors(palette)).cuda()
+    out = render.render_bev_map_fused(grid, palette)
     ref = render.render_bev_map_plain(grid, colors)
     torch.cuda.synchronize()
     err = int((out.long() - ref.long()).abs().max())
+    print(f"  K1 {what}: max |err| {err} vs plain", flush=True)
     if err != 0:
-        raise AssertionError(f"K1 differs from its plain version on {(out != ref).sum()} cells")
+        raise AssertionError(f"K1 {what} differs from its plain version on {(out != ref).sum()} cells")
     if not bool((out != 0).any()):
-        raise AssertionError("K1 rendered an all-black map")
-    ms = cuda_ms(lambda: render.render_bev_map_fused(grid, LABEL_COLORS), 50)
+        raise AssertionError(f"K1 {what} rendered an all-black map")
+    return err
+
+
+def check_render(gen) -> dict:
+    for c, h, w, offset in RENDER_EDGES:
+        grid = render_grid(gen, c, h, w, offset)
+        palette = LABEL_COLORS if c == len(LABEL_COLORS) else \
+            np.random.default_rng(c).integers(0, 256, (c, 3))
+        render_exact(f"{(c, h, w)} offset {offset * 4} bytes", grid, palette)
+    c, h, w = 5, 2000, 2000
+    grid = render_grid(gen, c, h, w)
+    err = render_exact(f"{(c, h, w)}", grid, LABEL_COLORS)
+    colors = torch.from_numpy(render.pack_colors(LABEL_COLORS)).cuda()
+    # the kernel through its C entry point: the wrapper's host work per call
+    # (about 40-60 us) can exceed the kernel's, and would set the time
+    out = torch.empty((h, w), dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: render.KERNEL.launch(render.ptr(grid), render.ptr(colors), c, h, w,
+                                              render.STRIP_ROWS, render.ptr(out)), 50)
+    wrapper_ms = cuda_ms(lambda: render.render_bev_map_fused(grid, LABEL_COLORS), 50)
+    print(f"  K1 through its wrapper, back to back: {wrapper_ms:.4f} ms per call", flush=True)
     plain_ms = cuda_ms(lambda: render.render_bev_map_plain(grid, colors), 5)
     return entry(
         "render_bev_map_fused", "vision_semantic_segmentation_tpu_torch/csrc/render.cu",
@@ -161,8 +193,22 @@ def check_fold(gen, rng) -> dict:
     )
 
 
+RENDER_EDGES = [  # (C, H, W, offset in f32 elements into a larger buffer)
+    (5, 37, 53, 0),     # W % 4 != 0: scalar loads
+    (5, 130, 2002, 0),  # W % 4 != 0, several strips and blocks across
+    (5, 64, 200, 1),    # a grid 4 bytes into its buffer: not 16-byte aligned
+    (11, 64, 200, 0),   # more channels than the kernel holds at once: two chunks
+]
 ASPP_SHAPE = (180, 240, 2048)   # (H, W, C) of the OS8 ASPP input at 1440x1920
 ASPP_DILATIONS = (12, 24, 36)
+ASPP_EDGES = [  # ((1, H, W, C), dilations, shared-memory budget of the plan or None)
+    ((1, 37, 53, 72), (12, 24, 36), None),   # ragged phases, a partial channel group
+    ((1, 37, 53, 20), (12, 24, 36), None),   # C % 8 != 0: one channel per thread
+    ((1, 45, 60, 256), (5, 7), None),        # g = 1: halo tiles
+    ((1, 20, 28, 40), (3,), None),           # one branch
+    ((1, 21, 30, 16), (2, 4, 6, 8, 10, 12, 14, 16), None),  # eight branches
+    ((1, 40, 44, 16), (1, 30), 4096),        # a cut halo: far taps from device memory
+]
 HOIST_KINDS = {  # kernel name -> (calls that launch it, TPU kernel it replaces)
     "hoisted": ((lambda x, k, d: hoist.hoisted(x, k, d),
                  lambda x, k, d: hoist.hoisted_variant(x, k, d, "f32col")),
@@ -228,12 +274,43 @@ def check_depthwise(inputs, table: dict) -> dict:
     )
 
 
+def aspp_exact(what, x, w9s, dils, budget=None) -> None:
+    """K4 (the wrapper, or a plan with a smaller shared-memory budget)
+    against its plain version: exact."""
+    if budget is None:
+        got = depthwise.aspp_depthwise3x3_multi(x, [k.reshape(3, 3, 1, -1) for k in w9s], dils)
+    else:
+        _, h, w, c = x.shape
+        plan = depthwise.aspp_plan(h, w, c, dils, x.element_size(), smem_budget=budget)
+        got = depthwise.launch_multi(x, w9s, dils, plan)
+    plain = depthwise.aspp_depthwise3x3_multi_plain(x, w9s, dils)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, plain))
+    print(f"  K4 {what} {x.dtype}: max |err| {err} vs plain", flush=True)
+    if err != 0.0:
+        raise AssertionError(f"K4 {what} {x.dtype} differs from plain by {err}")
+
+
 def check_aspp(inputs, table: dict) -> dict:
-    """K4 against its plain version and, branch by branch, against K3: exact."""
+    """K4 against its plain version and, branch by branch, against K3: exact;
+    also on the edge shapes, the main shape with halo tiles and an input
+    that is not 16-byte aligned."""
     h, w, c = ASPP_SHAPE
     kernels, x32, xbf = inputs
     w9s = torch.stack([k.reshape(9, c) for k in kernels])
     dils = list(ASPP_DILATIONS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for shape, edge_dils, budget in ASPP_EDGES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        edge_w9s = torch.randn((len(edge_dils), 9, shape[-1]), generator=gen, device="cuda")
+        for xt in (x, x.to(torch.bfloat16)):
+            aspp_exact(f"{shape} d {edge_dils} budget {budget}", xt, edge_w9s, edge_dils, budget)
+    for xt in (x32, xbf):
+        aspp_exact(f"{(1, *ASPP_SHAPE)} halo tiles", xt, w9s, dils, budget=24 * 1024)
+    shape = (1, 37, 53, 72)
+    buf = torch.randn((1 + int(np.prod(shape)),), generator=gen, device="cuda").to(torch.bfloat16)
+    aspp_exact(f"{shape} input 2 bytes into its buffer", buf[1:].view(shape),
+               torch.randn((3, 9, 72), generator=gen, device="cuda"), dils)
     for x in (x32, xbf):
         got = depthwise.aspp_depthwise3x3_multi(x, kernels, dils)
         plain = depthwise.aspp_depthwise3x3_multi_plain(x, w9s, dils)
@@ -584,6 +661,43 @@ def where_time_goes(what: str, step, top: int = 12) -> None:
         print(f"  {us / 1e3:8.3f} ms {us / 1e3 / device_ms:6.1%} x{count:<4d} {name[:110]}", flush=True)
 
 
+def sweep(smi: str) -> None:
+    """Launch choices of K4 and K1 at the main path's shapes, each checked
+    against the default's output and timed with CUDA events on one set of
+    inputs: K4's channel group and threads per block (bf16, d 12/24/36),
+    K1's strip rows (5x2000x2000)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h, w, c = ASPP_SHAPE
+    x = torch.randn((1, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    w9s = torch.randn((len(ASPP_DILATIONS), 9, c), generator=gen, device="cuda")
+    kernels = [k.reshape(3, 3, 1, c) for k in w9s]
+    want = depthwise.aspp_depthwise3x3_multi(x, kernels, ASPP_DILATIONS)
+    k3 = cuda_ms(lambda: [depthwise.depthwise3x3_dilated(x, k, d)
+                          for k, d in zip(kernels, ASPP_DILATIONS)], 30)
+    print(f"sweep on {smi}: K4 bf16 {ASPP_SHAPE}; 3 x K3 {k3:.4f} ms", flush=True)
+    for group_bytes in (64, 128, 256):
+        for threads in (64, 128, 256):
+            plan = depthwise.aspp_plan(h, w, c, ASPP_DILATIONS, 2, group_bytes=group_bytes,
+                                       threads=threads)
+            got = depthwise.launch_multi(x, w9s, ASPP_DILATIONS, plan)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms = cuda_ms(lambda: depthwise.launch_multi(x, w9s, ASPP_DILATIONS, plan), 30)
+            print(f"  K4 group {plan.group} threads {plan.threads} smem {plan.smem}: {ms:.4f} ms "
+                  f"equal {same}", flush=True)
+    grid = render_grid(gen, 5, 2000, 2000)
+    want = render.render_bev_map_fused(grid, LABEL_COLORS)
+    out = torch.empty((2000, 2000), dtype=torch.int32, device="cuda")
+    colors = torch.from_numpy(render.pack_colors(LABEL_COLORS)).cuda()
+    for strip in (4, 8, 16, 32, 64):
+        def launch():
+            render.KERNEL.launch(render.ptr(grid), render.ptr(colors), 5, 2000, 2000, strip,
+                                 render.ptr(out))
+        launch()
+        same = torch.equal(out, want)
+        ms = cuda_ms(launch, 50)
+        print(f"  K1 strip {strip}: {ms:.4f} ms (C entry point) equal {same}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -597,6 +711,9 @@ def main() -> None:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {k.source}: {line.strip()}", flush=True)
+    if "--sweep" in sys.argv[1:]:
+        sweep(smi)
+        return
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rng = np.random.default_rng(1)

@@ -1,8 +1,9 @@
 // 16-byte vector loads and stores of float32 / bfloat16 channels, converted
-// to and from f32 registers.  Shared by the depthwise kernels (depthwise.cu,
-// aspp_depthwise.cu, depthwise_hoist.cu): each thread owns Vec<T>::N
-// channels (16 bytes) of one pixel, so neighbouring threads touch
-// neighbouring 16-byte words.
+// to and from f32 registers.  Shared by the depthwise kernels: in
+// depthwise.cu and depthwise_hoist.cu each thread owns Vec<T>::N channels
+// (16 bytes) of one pixel, so neighbouring threads touch neighbouring
+// 16-byte words; aspp_depthwise.cu stages with that width and loads its
+// weights with load_weights.
 #pragma once
 
 #include <cuda_bf16.h>

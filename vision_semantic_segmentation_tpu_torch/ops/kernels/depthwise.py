@@ -10,8 +10,14 @@ rounds once to the input dtype.
 
 K4 replaces ``aspp_depthwise3x3_multi`` of the same TPU module; its CUDA
 source is ``csrc/aspp_depthwise.cu``.  It computes every ASPP atrous branch
-from one pass over the input, each branch equal to K3 bit for bit, and is
-bound by bytes too (one read, one write per branch).
+from one read of the input, each branch equal to K3 bit for bit, and is
+bound by bytes (one read, one write per branch).  With g the gcd of the
+dilations, each phase ``x[pr::g, pc::g]`` holds every tap its own pixels
+need (branch b's taps sit at +-d_b / g phase pixels), so one block stages a
+phase's tile of one channel group in shared memory once and computes all
+branches from it.  :func:`aspp_plan` sizes that launch (tile, halo, channel
+group, threads, shared bytes); the wrapper passes it to the kernel, and the
+CPU tests walk the same plan.
 
 Note on bf16: the JAX package's default depthwise path (the shifted form,
 ``models/layers.py::ShiftedDepthwiseConv``) accumulates in the compute
@@ -21,7 +27,9 @@ the two differ by bf16 rounding of the partial sums.  In f32 they agree.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+import math
+from functools import reduce
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,10 +44,79 @@ KERNEL = CudaKernel(
 MULTI_KERNEL = CudaKernel(
     "aspp_depthwise3x3_multi", "aspp_depthwise.cu", "aspp_depthwise3x3_multi",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 MAX_BRANCHES = 8  # the CUDA source's kMaxBranches
+SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB), csrc kMaxSmem
+# K4's channels per block, in bytes of the input, and threads per block (at
+# most; a multiple of the walker slots per pixel): the fastest pair of
+# chip_smoke.py --sweep at the main path's shape
+GROUP_BYTES = 64
+THREADS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class AsppPlan(NamedTuple):
+    """K4's launch: one block per (phase, phase sub-tile, channel group)."""
+
+    g: int  # phase lattice step, the gcd of the dilations
+    steps: Tuple[int, ...]  # each branch's tap offset in phase pixels, d / g
+    tile_h: int  # output sub-tile of a phase, in phase pixels
+    tile_w: int
+    halo: int  # staged halo around the sub-tile (max(steps) unless cut to fit)
+    group: int  # channels per block
+    vector: int  # channels per walker: 4 (16-byte staging copies) or 1 (the scalar path)
+    threads: int
+    smem: int  # shared bytes: the staged tile, then the group's weights
+
+    def c_args(self):
+        """The int[8] the C entry point takes."""
+        return (ctypes.c_int * 8)(self.g, self.tile_h, self.tile_w, self.halo, self.group,
+                                  self.threads, self.smem, int(self.vector > 1))
+
+
+def aspp_plan(
+    h: int, w: int, c: int, dilations: Sequence[int], itemsize: int, aligned: bool = True,
+    smem_budget: int = SMEM_LIMIT, group_bytes: int = GROUP_BYTES, threads: int = THREADS,
+) -> AsppPlan:
+    """K4's launch plan for a (1, h, w, c) input of ``itemsize`` bytes.
+
+    A block stages its tile with a zero border of ``halo`` phase pixels,
+    then the channel group's f32 weights.  The whole largest phase
+    (ceil(h / g) x ceil(w / g) pixels) is one tile when that fits
+    ``smem_budget``.  Otherwise the tile's larger side halves until it fits
+    with a halo of max(d) / g; a tile no larger than its halo cuts the halo
+    instead, and taps beyond a cut halo are read from device memory.
+    ``aligned``: whether the input pointer is 16-byte aligned (the vector
+    path needs it, and c a multiple of 16 bytes).
+    """
+    if not dilations or min(dilations) < 1:
+        raise ValueError(f"dilations {tuple(dilations)}")
+    g = reduce(math.gcd, dilations)
+    steps = tuple(d // g for d in dilations)
+    chunk = 16 // itemsize  # channels per 16-byte staging copy
+    unit = chunk if aligned and c % chunk == 0 else 1
+    vector = 4 if unit > 1 else 1
+    group = max(unit, min(group_bytes // itemsize, -(-c // unit) * unit))
+    slots = group // vector
+    threads = max(slots, threads // slots * slots)
+    ph, pw = -(-h // g), -(-w // g)
+    weights = len(dilations) * 9 * group * 4  # the group's f32 weights, staged after the tile
+
+    def smem(th: int, tw: int, halo: int) -> int:  # the tile with its (zero) border
+        tile = (th + 2 * halo) * (tw + 2 * halo) * group * itemsize
+        return -(-tile // 16) * 16 + weights
+
+    th, tw, halo = ph, pw, max(steps)
+    while smem(th, tw, halo) > smem_budget:
+        if max(th, tw) > max(halo, 1):
+            th, tw = (-(-th // 2), tw) if th >= tw else (th, -(-tw // 2))
+        elif halo > 0:
+            halo -= 1
+        else:
+            raise ValueError(f"{group} channels of one pixel exceed {smem_budget} bytes")
+    return AsppPlan(g, steps, th, tw, halo, group, vector, threads, smem(th, tw, halo))
 
 
 def _check_input(x: torch.Tensor) -> None:
@@ -134,10 +211,29 @@ def aspp_depthwise3x3_multi(
     if uses_plain(MULTI_KERNEL, x):
         return aspp_depthwise3x3_multi_plain(x, w9s, dilations)
     refuse_grad(MULTI_KERNEL, x, w9s)
-    if not x.is_contiguous():
-        raise ValueError("aspp_depthwise3x3_multi needs a contiguous NHWC input")
+    plan = aspp_plan(h, w, c, dilations, x.element_size(), aligned=x.data_ptr() % 16 == 0)
+    return launch_multi(x, w9s, dilations, plan)
+
+
+def launch_multi(
+    x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int], plan: AsppPlan
+) -> List[torch.Tensor]:
+    """Launch K4 on a contiguous CUDA ``x`` and (n, 9, C) f32 ``w9s`` with a
+    given plan (the wrapper's, or one with another budget or channel group;
+    the kernel refuses a plan that does not match the shapes)."""
+    _check_input(x)
+    _, h, w, c = x.shape
+    n = len(dilations)
+    if not 1 <= n <= MAX_BRANCHES:
+        raise ValueError(f"{n} dilations (1..{MAX_BRANCHES})")
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("aspp_depthwise3x3_multi needs a contiguous NHWC input on the card")
+    if (w9s.shape != (n, 9, c) or w9s.dtype != torch.float32 or w9s.device != x.device
+            or not w9s.is_contiguous()):
+        raise ValueError(f"weights {tuple(w9s.shape)} {w9s.dtype} for {n} branches of C={c}")
     y = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
     dil = (ctypes.c_int * MAX_BRANCHES)(*[int(d) for d in dilations])
+    args = plan.c_args()
     MULTI_KERNEL.launch(ptr(x), ptr(w9s), ptr(y), h, w, c, n, ctypes.cast(dil, ctypes.c_void_p),
-                        _DTYPES[x.dtype])
+                        _DTYPES[x.dtype], ctypes.cast(args, ctypes.c_void_p))
     return [y[b : b + 1] for b in range(n)]
