@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --sweep    # setup, then K4's and K1's launch choices timed
+    python3 chip_smoke.py --sweep    # setup, then the kernels' launch choices timed
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -14,15 +14,18 @@ Phases (any failure raises, so the exit code is non-zero):
    PyTorch yardstick where one exists, and its least possible time
    (``bound_ms``: the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s f32,
    the H100 SXM data-sheet rates).
-   K1, K4 and P1/P2 must equal their plain versions exactly (K4 also
-   equals K3 branch by branch); K1 and K4 also on edge shapes (W not a
-   multiple of 4, an unaligned grid or input, ragged phases, C = 20 on
-   the scalar path, g = 1, one and eight branches, halo tiles, a cut
-   halo).  Each kernel line prints its share of the bound.  Then the
-   variants, from the times those checks took:
-   per ASPP dilation ``F.conv2d(groups=C)``, K3, P1 (which P2 "f32col"
-   shares) and P2 "slab", and K4 against three K3 launches (the
-   counterpart of scripts/probe_depthwise_hoist.py and
+   K1, K3, K4 and P1/P2 must equal their plain versions exactly (K4 also
+   equals K3 branch by branch), also on edge shapes (K1: W not a multiple
+   of 4, an unaligned grid; K4: ragged phases, C = 20 on the scalar path,
+   g = 1, one and eight branches, halo tiles, a cut halo; K3 and P1/P2:
+   ragged phases, a partial channel group, sub-tiled phases at d = 1 and
+   2, d = 64 and 200 on a small image, C = 20, an unaligned input).  A
+   single-branch ASPP module must launch K3 once and equal its plain run.
+   Each kernel line prints its share of the bound.  Then the variants,
+   from the times those checks took: per ASPP dilation
+   ``F.conv2d(groups=C)``, K3, P1 (which P2 "f32col" shares) and P2
+   "slab" with the ratio of the two, and K4 against three K3 launches
+   (the counterpart of scripts/probe_depthwise_hoist.py and
    scripts/probe_aspp_fused.py).
 3. The main path at full width: DeepLabV3+ ResNeXt50-32x4d OS8 (19 classes,
    bf16, seeded random weights, BatchNorm statistics from one frame) over
@@ -217,6 +220,29 @@ HOIST_KINDS = {  # kernel name -> (calls that launch it, TPU kernel it replaces)
                              "scripts/probe_depthwise_hoist.py:119"),
 }
 
+# the three phase-walker kernels: kernel name -> (CudaKernel, its wrapper, plain version)
+WALKERS = {
+    "depthwise3x3_dilated": (depthwise.KERNEL, depthwise.depthwise3x3_dilated,
+                             depthwise.depthwise3x3_dilated_plain),
+    "hoisted": (hoist.HOISTED, hoist.hoisted, hoist.hoisted_plain),
+    "hoisted_variant_slab": (hoist.VARIANTS["slab"], HOIST_KINDS["hoisted_variant_slab"][0][0],
+                             hoist.hoisted_plain),
+}
+WALKER_EDGES = [  # ((1, H, W, C), dilation, arguments of the plan or None for the wrapper's)
+    ((1, 37, 53, 72), 12, dict(group_bytes=64)),  # ragged phases, a partial channel group
+    ((1, 37, 53, 72), 24, None),
+    ((1, 37, 53, 20), 36, None),                  # C = 20: one channel per thread
+    ((1, 45, 60, 256), 5, None),
+    ((1, 20, 28, 40), 3, None),
+    ((1, 21, 30, 16), 16, None),
+    ((1, 40, 44, 16), 30, None),                  # d > W / 2: phases of two pixels
+    ((1, *ASPP_SHAPE), 1, None),                  # one 180x240 phase: sub-tiles
+    ((1, *ASPP_SHAPE), 2, None),
+    ((1, 20, 28, 40), 64, None),                  # d > H and W: phases of one pixel
+    ((1, 20, 28, 40), 200, None),
+    ((1, *ASPP_SHAPE), 12, dict(smem_budget=8 * 1024)),  # a small budget: sub-tiles
+]
+
 
 def aspp_inputs(gen):
     """The ASPP input and one depthwise kernel per dilation, shared by the
@@ -234,44 +260,101 @@ def grouped_conv(x_nhwc, kernel, d):
     return F.conv2d(x_nhwc.permute(0, 3, 1, 2), w_oihw, padding=d, dilation=d, groups=c)
 
 
+def walker_exact(name: str, what: str, x, w9, d, plan_args=None) -> None:
+    """K3, ``hoisted`` or ``hoisted_variant_slab`` (the wrapper, or a given
+    plan) against its plain version: exact."""
+    kernel, call, plain = WALKERS[name]
+    if plan_args is None:
+        got = call(x, w9.reshape(3, 3, 1, -1), d)
+    else:
+        _, h, w, c = x.shape
+        plan = depthwise.depthwise_plan(h, w, c, d, x.element_size(),
+                                        hoist.staged_itemsize(kernel, x),
+                                        aligned=depthwise.pointers_aligned(x, w9), **plan_args)
+        got = depthwise.launch_depthwise(kernel, x, w9, d, plan)
+    ref = plain(x, w9, d)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    if err != 0.0 or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name} {what} {x.dtype} d={d} differs from plain by {err}")
+
+
+def check_walker_edges(name: str) -> None:
+    """K3 or a P kernel on the edge shapes, f32 and bf16, and on a bf16
+    input 2 bytes into its buffer: exact."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape, d, plan_args in WALKER_EDGES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w9 = torch.randn((9, shape[-1]), generator=gen, device="cuda")
+        for xt in (x, x.to(torch.bfloat16)):
+            walker_exact(name, f"{shape} plan {plan_args}", xt, w9, d, plan_args)
+    shape = (1, 37, 53, 72)
+    buf = torch.randn((1 + int(np.prod(shape)),), generator=gen, device="cuda").to(torch.bfloat16)
+    walker_exact(name, f"{shape} input 2 bytes into its buffer", buf[1:].view(shape),
+                 torch.randn((9, 72), generator=gen, device="cuda"), 12)
+    print(f"  {name}: max |err| 0 vs plain on {len(WALKER_EDGES) + 1} edge shapes "
+          f"(f32 and bf16; d = {sorted({e[1] for e in WALKER_EDGES})})", flush=True)
+
+
 def check_depthwise(inputs, table: dict) -> dict:
-    """K3 against its plain version; fills ``table[d]`` with the bf16 ms of
-    K3 and of ``F.conv2d(groups=C)``, which the K4 and P entries reuse."""
+    """K3 against its plain version: exact, f32 and bf16, on the main shape
+    and the edge shapes; fills ``table[d]`` with the bf16 ms of K3 and of
+    ``F.conv2d(groups=C)``, which the K4 and P entries reuse."""
     h, w, c = ASPP_SHAPE
     kernels, x32, xbf = inputs
-    errs, plain_times = [], []
+    check_walker_edges("depthwise3x3_dilated")
+    plain_times = []
     for kernel, d in zip(kernels, ASPP_DILATIONS):
         w9 = kernel.reshape(9, c).contiguous()
-        got = depthwise.depthwise3x3_dilated(x32, kernel, d)
-        ref = depthwise.depthwise3x3_dilated_plain(x32, w9, d)
-        e32 = float((got - ref).abs().max())
-        if e32 > 1e-4:
-            raise AssertionError(f"K3 f32 d={d} max |err| {e32} > 1e-4")
-        got = depthwise.depthwise3x3_dilated(xbf, kernel, d).float()
-        acc = depthwise.depthwise3x3_dilated_plain(xbf.float(), w9, d)  # f32 sums
-        ulp = torch.exp2(torch.floor(torch.log2(acc.abs().clamp_min(1e-30))) - 7)
-        worst = float(((got - acc).abs() / ulp).max())
-        if worst > 1.0:
-            raise AssertionError(f"K3 bf16 d={d}: {worst} bf16 ulp from the f32 sum")
-        plain_bf = depthwise.depthwise3x3_dilated_plain(xbf, w9, d).float()
-        ebf = float((got - plain_bf).abs().max())
-        errs.append(ebf)
+        for x in (x32, xbf):
+            walker_exact("depthwise3x3_dilated", f"{(1, *ASPP_SHAPE)}", x, w9, d)
+        # the bf16 result is the f32 sum of the bf16 inputs, rounded once
+        got = depthwise.depthwise3x3_dilated(xbf, kernel, d)
+        f32_sum = depthwise.depthwise3x3_dilated(xbf.float(), kernel, d)
+        if not torch.equal(got, f32_sum.to(torch.bfloat16)):
+            raise AssertionError(f"K3 bf16 d={d} is not the rounded f32 sum")
         row = table.setdefault(d, {})
         row["conv2d"] = cuda_ms(lambda: grouped_conv(xbf, kernel, d), 20)
         row["K3"] = cuda_ms(lambda: depthwise.depthwise3x3_dilated(xbf, kernel, d), 30)
         plain_times.append(cuda_ms(lambda: depthwise.depthwise3x3_dilated_plain(xbf, w9, d), 3))
-        print(f"  K3 d={d}: f32 err {e32} bf16 err vs plain {ebf} (<= {worst:.3f} ulp "
-              f"of the f32 sum) kernel {row['K3']:.4f} ms plain {plain_times[-1]:.4f} ms "
-              f"conv2d {row['conv2d']:.4f} ms", flush=True)
+        print(f"  K3 d={d}: max |err| 0 vs plain (f32 and bf16) kernel {row['K3']:.4f} ms "
+              f"plain {plain_times[-1]:.4f} ms conv2d {row['conv2d']:.4f} ms", flush=True)
     # one entry per kernel: bf16 (the main path's dtype), averaged over the
     # three ASPP dilations
     return entry(
         "depthwise3x3_dilated", "vision_semantic_segmentation_tpu_torch/csrc/depthwise.cu",
-        "vision_semantic_segmentation_tpu/ops/pallas/depthwise.py:224", max(errs),
+        "vision_semantic_segmentation_tpu/ops/pallas/depthwise.py:224", 0.0,
         float(np.mean([table[d]["K3"] for d in ASPP_DILATIONS])), float(np.mean(plain_times)),
         float(np.mean([table[d]["conv2d"] for d in ASPP_DILATIONS])),
         2 * h * w * c * 2 + 9 * c * 4, 18 * h * w * c,
     )
+
+
+def check_single_branch_aspp() -> None:
+    """The module route into K3: a full-width ASPP with one atrous branch
+    launches K3 once (and K4 never) and equals its run on the plain path."""
+    from vision_semantic_segmentation_tpu_torch.models.aspp import ASPP
+
+    torch.manual_seed(4)
+    aspp = ASPP(2048, atrous_channels=(256, 256), atrous_kernel_size=(1, 3),
+                atrous_dilation=(1, 12)).to(device="cuda", dtype=torch.bfloat16).eval()
+    h, w, c = ASPP_SHAPE
+    x = torch.randn((1, c, h, w), device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        K.reset_launch_counts()
+        got = aspp(x)
+        launches = {k.name: k.launches for k in K.kernels() if k.launches}
+        with K.plain_versions():
+            ref = aspp(x)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    print(f"  single-branch ASPP {tuple(x.shape)} bf16: launches {launches}, "
+          f"max |err| {err} vs its plain run", flush=True)
+    if launches != {"depthwise3x3_dilated": 1}:
+        raise AssertionError(f"single-branch ASPP launched {launches}, expected K3 once")
+    if err != 0.0 or not bool(torch.isfinite(got.float()).all()) or got.shape != (1, 256, h, w):
+        raise AssertionError(f"single-branch ASPP differs from its plain run by {err}")
 
 
 def aspp_exact(what, x, w9s, dils, budget=None) -> None:
@@ -339,8 +422,9 @@ def check_aspp(inputs, table: dict) -> dict:
 def check_hoist(inputs, table: dict) -> list:
     """P1 and both kinds of P2 against ``hoisted_plain``: exact, f32 and bf16.
 
-    ``hoisted`` and ``hoisted_variant(..., "f32col")`` launch one register
-    kernel: both calls are checked, the kernel is timed once.
+    ``hoisted`` and ``hoisted_variant(..., "f32col")`` launch one kernel:
+    both calls are checked, the kernel is timed once.  Each kernel also
+    runs the edge shapes.
     """
     h, w, c = ASPP_SHAPE
     kernels, x32, xbf = inputs
@@ -348,6 +432,7 @@ def check_hoist(inputs, table: dict) -> list:
                 for k, d in zip(kernels, ASPP_DILATIONS)}
     out = []
     for name, (calls, replaces) in HOIST_KINDS.items():
+        check_walker_edges(name)
         for kernel, d in zip(kernels, ASPP_DILATIONS):
             w9 = kernel.reshape(9, c)
             for call in calls:
@@ -381,7 +466,9 @@ def print_variants(table: dict) -> None:
     """
     print(f"variants (bf16 {ASPP_SHAPE}, ms per call):", flush=True)
     for d in ASPP_DILATIONS:
-        print(f"  d={d}: " + "  ".join(f"{k} {v:.4f}" for k, v in table[d].items()), flush=True)
+        row = table[d]
+        print(f"  d={d}: " + "  ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"  slab / f32col {row['hoisted_variant_slab'] / row['hoisted']:.3f}", flush=True)
     k4, k3 = table["K4"], table["3 x K3"]
     print(f"  K4 {k4:.4f} ms against 3 x K3 {k3:.4f} ms (ratio {k4 / k3:.3f}, "
           f"{'faster' if k4 < k3 else 'slower'})", flush=True)
@@ -662,10 +749,11 @@ def where_time_goes(what: str, step, top: int = 12) -> None:
 
 
 def sweep(smi: str) -> None:
-    """Launch choices of K4 and K1 at the main path's shapes, each checked
-    against the default's output and timed with CUDA events on one set of
-    inputs: K4's channel group and threads per block (bf16, d 12/24/36),
-    K1's strip rows (5x2000x2000)."""
+    """Launch choices at the main path's shapes, each checked against the
+    default's output and timed with CUDA events on one set of inputs: K4's
+    channel group and threads per block (bf16, d 12/24/36), the same two
+    for K3, P1/"f32col" and "slab" per dilation, K1's strip rows
+    (5x2000x2000)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     h, w, c = ASPP_SHAPE
     x = torch.randn((1, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -684,6 +772,26 @@ def sweep(smi: str) -> None:
             ms = cuda_ms(lambda: depthwise.launch_multi(x, w9s, ASPP_DILATIONS, plan), 30)
             print(f"  K4 group {plan.group} threads {plan.threads} smem {plan.smem}: {ms:.4f} ms "
                   f"equal {same}", flush=True)
+    for name, (kernel, call, _) in WALKERS.items():
+        staged = hoist.staged_itemsize(kernel, x)
+        for w9, d in zip(w9s, ASPP_DILATIONS):
+            want = call(x, w9.reshape(3, 3, 1, c), d)
+            plan = depthwise.depthwise_plan(h, w, c, d, 2, staged)
+            ms = cuda_ms(lambda: depthwise.launch_depthwise(kernel, x, w9, d, plan), 30)
+            print(f"  {name} d={d} default: group {plan.group} threads {plan.threads} "
+                  f"smem {plan.smem}: {ms:.4f} ms", flush=True)
+            for group_bytes in (64, 128, 256, 512):
+                times = []
+                for threads in (64, 128, 256):
+                    plan = depthwise.depthwise_plan(h, w, c, d, 2, staged,
+                                                    group_bytes=group_bytes, threads=threads,
+                                                    smem_budget=depthwise.SMEM_LIMIT)
+                    if not torch.equal(depthwise.launch_depthwise(kernel, x, w9, d, plan), want):
+                        raise AssertionError(f"{name} d={d} {plan} differs from the default's output")
+                    ms = cuda_ms(lambda: depthwise.launch_depthwise(kernel, x, w9, d, plan), 30)
+                    times.append(f"{plan.threads} threads {ms:.4f} ms")
+                print(f"  {name} d={d} group {plan.group} smem {plan.smem}: " + ", ".join(times)
+                      + " (each equal to the default's output)", flush=True)
     grid = render_grid(gen, 5, 2000, 2000)
     want = render.render_bev_map_fused(grid, LABEL_COLORS)
     out = torch.empty((2000, 2000), dtype=torch.int32, device="cuda")
@@ -722,6 +830,7 @@ def main() -> None:
     entries += [check_depthwise(inputs, table), check_aspp(inputs, table),
                 *check_hoist(inputs, table)]
     del inputs
+    check_single_branch_aspp()
     print_variants(table)
     pipeline, frames = main_path(entries, smi)
     online_phase(pipeline, frames, smi)

@@ -138,7 +138,9 @@ class TestDepthwise:
 
 # (name, shape, dilations): the shapes of tests/test_pallas.py's K4 tests
 K4_CASES = [("k4_a", (1, 20, 28, 256), (2, 4, 6)), ("k4_b", (1, 14, 18, 128), (1, 3, 5))]
-HOIST_CASES = [("hoist_a", (1, 12, 20, 128), 2), ("hoist_b", (1, 14, 18, 128), 3)]
+# hoist_c: a dilation beyond 56, with a few rows and columns of taps inside the image
+HOIST_CASES = [("hoist_a", (1, 12, 20, 128), 2), ("hoist_b", (1, 14, 18, 128), 3),
+               ("hoist_c", (1, 66, 72, 128), 64)]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _PALLAS_REFS = r"""

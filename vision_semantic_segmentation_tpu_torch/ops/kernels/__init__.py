@@ -11,6 +11,11 @@ P1 hoisted  scripts/probe_depthwise_hoist.py::hoisted   csrc/depthwise_hoist.cu
 P2 variant  scripts/probe_depthwise_hoist.py::hoisted_  csrc/depthwise_hoist.cu
 ==========  ==========================================  =====================
 
+K3, P1 and P2 share one design, ``csrc/phase.cuh`` (a phase tile of a channel
+group staged once in shared memory, walkers along its columns or rows), and
+one launch plan, ``depthwise.depthwise_plan``; K4 is the same design for
+several dilations at once, with ``depthwise.aspp_plan``.
+
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises).
 """

@@ -2,11 +2,17 @@
 
 K3 replaces the TPU kernel ``vision_semantic_segmentation_tpu/ops/pallas/
 depthwise.py::depthwise3x3_dilated``; its CUDA source is
-``csrc/depthwise.cu``.  On the H100 it is bound by bytes (read x once, write
-y once).  The kernel puts channels on threads, 16 bytes of channels per
-thread, so each tap load and the store are coalesced, and leaves the tap
-re-reads to L1/L2.  It accumulates in f32 in the TPU kernel's tap order and
-rounds once to the input dtype.
+``csrc/depthwise.cu`` (the design is in ``csrc/phase.cuh``).  On the H100 it
+is bound by bytes (read x once, write y once).  Each phase
+``x[pr::d, pc::d]`` holds every tap its own pixels need, at +-1 phase pixel
+whatever the dilation is, so a block stages one phase tile of a channel
+group in shared memory with a zero border of one phase pixel, and walkers
+go down its columns: each staged row is loaded once for the three outputs
+that use it.  The sums are f32 in the TPU kernel's tap order, rounded once
+to the input dtype.  :func:`depthwise_plan` sizes that launch (tile, row
+pitch, channel group, threads, shared bytes) for K3 and for the
+column-major kernels of ``depthwise_hoist.py``; :func:`launch_depthwise`
+passes it to the kernel, and the CPU tests walk the same plan.
 
 K4 replaces ``aspp_depthwise3x3_multi`` of the same TPU module; its CUDA
 source is ``csrc/aspp_depthwise.cu``.  It computes every ASPP atrous branch
@@ -29,18 +35,20 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import reduce
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ._lib import CudaKernel, ptr, refuse_grad, uses_plain
 
-KERNEL = CudaKernel(
-    "depthwise3x3_dilated", "depthwise.cu", "depthwise3x3_dilated",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-)
+# K3's C signature, shared by the column-major kernels of depthwise_hoist.py:
+# x, w, y, H, W, C, dilation, dtype, plan, stream
+DEPTHWISE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p]
+KERNEL = CudaKernel("depthwise3x3_dilated", "depthwise.cu", "depthwise3x3_dilated",
+                    DEPTHWISE_ARGTYPES)
 MULTI_KERNEL = CudaKernel(
     "aspp_depthwise3x3_multi", "aspp_depthwise.cu", "aspp_depthwise3x3_multi",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -54,6 +62,15 @@ SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB), csrc kMaxSm
 # chip_smoke.py --sweep at the main path's shape
 GROUP_BYTES = 64
 THREADS = 128
+# K3's and the column-major kernels' launch, from chip_smoke.py --sweep at
+# the main path's shape: threads per block; the least channel group in bytes
+# of the input, doubled while the staged tile stays within WALK_TILE_BYTES
+# (five blocks fit an SM, so one block's staging overlaps another's walk);
+# and the shared bytes above which a phase is cut into sub-tiles
+WALK_THREADS = 128
+WALK_GROUP_BYTES = 64
+WALK_TILE_BYTES = 44 * 1024
+WALK_SMEM_BUDGET = 64 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -119,6 +136,85 @@ def aspp_plan(
     return AsppPlan(g, steps, th, tw, halo, group, vector, threads, smem(th, tw, halo))
 
 
+class DepthwisePlan(NamedTuple):
+    """One dilation's launch: one block per (phase, phase sub-tile, channel group)."""
+
+    tile_h: int  # output sub-tile of a phase, in phase pixels
+    tile_w: int
+    pitch: int  # staged elements per tile row, at least (tile_w + 2) * group
+    group: int  # channels per block
+    vector: int  # channels per walker: 4 (16-byte staging copies) or 1 (the scalar path)
+    threads: int
+    smem: int  # shared bytes: the staged tile with its one-pixel border
+
+    def c_args(self):
+        """The int[7] the C entry points take."""
+        return (ctypes.c_int * 7)(self.tile_h, self.tile_w, self.pitch, self.group,
+                                  self.threads, self.smem, int(self.vector > 1))
+
+
+def depthwise_plan(
+    h: int, w: int, c: int, dilation: int, itemsize: int, staged_itemsize: Optional[int] = None,
+    aligned: bool = True, smem_budget: int = WALK_SMEM_BUDGET,
+    group_bytes: Optional[int] = None, threads: int = WALK_THREADS,
+) -> DepthwisePlan:
+    """The launch plan of K3 and of the kernels of ``depthwise_hoist.py`` for
+    a (1, h, w, c) input of ``itemsize`` bytes.
+
+    A block stages a tile of one phase (ceil(h / d) x ceil(w / d) pixels at
+    most) with a border of one phase pixel, ``staged_itemsize`` bytes an
+    element (the input's, or 4 for a tile held as f32).  A walker takes 4
+    channels (1 on the scalar path) of one line of the tile.
+
+    The channel group (``group_bytes`` of the input, when given) is
+    ``WALK_GROUP_BYTES``, doubled while the whole phase with its border
+    stays within ``WALK_TILE_BYTES``: small phases (large dilations) take
+    wide groups, so that a block has bytes in flight and walks for its
+    threads.  The tile is the whole phase when that fits ``smem_budget``;
+    otherwise its larger side halves until it does, and a sub-tile's border
+    holds its neighbours' pixels.  ``aligned``: whether the input, weight
+    and output pointers are 16-byte aligned (the vector path needs it, and
+    c a multiple of 16 bytes).
+    """
+    if dilation < 1:
+        raise ValueError(f"dilation {dilation} < 1")
+    staged = staged_itemsize or itemsize
+    chunk = 16 // itemsize  # channels per 16-byte staging copy
+    unit = chunk if aligned and c % chunk == 0 else 1
+    vector = 4 if unit > 1 else 1
+    th, tw = -(-h // dilation), -(-w // dilation)
+
+    def pitch(tw: int, group: int) -> int:
+        """Elements per staged row.  Where a pixel's group is narrower than
+        128 bytes, rows are padded to start 128-byte-disjoint: the walkers
+        of neighbouring rows then read different banks."""
+        row, pixel = (tw + 2) * group * staged, group * staged
+        if pixel < 128:
+            row += (pixel - row) % 128
+        return row // staged
+
+    def smem(th: int, tw: int, group: int) -> int:
+        return -(-(th + 2) * pitch(tw, group) * staged // 16) * 16
+
+    if group_bytes is None:
+        group_bytes = WALK_GROUP_BYTES
+        while smem(th, tw, 2 * group_bytes // itemsize) <= WALK_TILE_BYTES:
+            group_bytes *= 2
+    group = max(unit, min(group_bytes // itemsize, threads * vector, -(-c // unit) * unit))
+    slots = group // vector
+    threads = max(slots, threads // slots * slots)
+    while smem(th, tw, group) > smem_budget:
+        if max(th, tw) == 1:
+            raise ValueError(f"{group} channels of one pixel exceed {smem_budget} bytes")
+        th, tw = (-(-th // 2), tw) if th >= tw else (th, -(-tw // 2))
+    return DepthwisePlan(th, tw, pitch(tw, group), group, vector, threads, smem(th, tw, group))
+
+
+def pointers_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor starts on a 16-byte boundary (the vector path)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check_input(x: torch.Tensor) -> None:
     if x.ndim != 4 or x.shape[0] != 1:
         raise ValueError(f"single-frame NHWC expected, got {tuple(x.shape)}")
@@ -169,10 +265,28 @@ def depthwise3x3_dilated(x: torch.Tensor, kernel: torch.Tensor, dilation: int) -
     if uses_plain(KERNEL, x):
         return depthwise3x3_dilated_plain(x, w9, dilation)
     refuse_grad(KERNEL, x, w9)
-    if not x.is_contiguous():
-        raise ValueError("depthwise3x3_dilated needs a contiguous NHWC input")
+    plan = depthwise_plan(h, w, c, dilation, x.element_size(), aligned=pointers_aligned(x, w9))
+    return launch_depthwise(KERNEL, x, w9, dilation, plan)
+
+
+def launch_depthwise(
+    kernel: CudaKernel, x: torch.Tensor, w9: torch.Tensor, dilation: int, plan: DepthwisePlan
+) -> torch.Tensor:
+    """Launch K3 or a column-major kernel on a contiguous CUDA ``x`` and
+    (9, C) f32 ``w9`` with a given plan (the wrapper's, or one with another
+    budget, channel group or thread count; the kernel refuses a plan that
+    does not match the shapes)."""
+    _check_input(x)
+    _, h, w, c = x.shape
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError(f"{kernel.name} needs a contiguous NHWC input on the card")
+    if (w9.shape != (9, c) or w9.dtype != torch.float32 or w9.device != x.device
+            or not w9.is_contiguous()):
+        raise ValueError(f"weights {tuple(w9.shape)} {w9.dtype} for C={c}")
     y = torch.empty_like(x)
-    KERNEL.launch(ptr(x), ptr(w9), ptr(y), h, w, c, dilation, _DTYPES[x.dtype])
+    args = plan.c_args()
+    kernel.launch(ptr(x), ptr(w9), ptr(y), h, w, c, dilation, _DTYPES[x.dtype],
+                  ctypes.cast(args, ctypes.c_void_p))
     return y
 
 

@@ -5,32 +5,44 @@ Replaces the probe kernels of ``scripts/probe_depthwise_hoist.py``:
 The three compute one function, K3's (``depthwise.py``) with the nine terms
 added column-major (``tj`` outer, ``ti`` inner) in f32, so they differ from
 K3 by float summation order only.  The CUDA source is
-``csrc/depthwise_hoist.cu``: ``hoisted`` and "f32col" run its register
-kernel (K3's layout), "slab" its shared-memory kernel, which stages an f32
-tile of the input with its ``2 * dilation`` halo before the nine taps.
+``csrc/depthwise_hoist.cu``: K3's phase tiles (``csrc/phase.cuh``) with the
+walkers going along the rows, which gives each sum its column-major order.
+The TPU variants differed in where the input became f32, and so do these:
+``hoisted`` and "f32col" stage the tile in the input's type and convert as
+a walker loads (one kernel, one launch count); "slab" converts while
+staging and holds the tile as f32.  Plan, walker and stores are shared, so
+their two times say what the conversion per tap costs.
 
 The probes' ``w_chunk`` argument is not taken: it sized the TPU's VMEM
 chunks along W and changes no value.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from ._lib import CudaKernel, ptr, refuse_grad, uses_plain
-from .depthwise import _DTYPES, _check_input, _weights9
+from ._lib import CudaKernel, refuse_grad, uses_plain
+from .depthwise import (
+    DEPTHWISE_ARGTYPES,
+    _check_input,
+    _weights9,
+    depthwise_plan,
+    launch_depthwise,
+    pointers_aligned,
+)
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # hoisted and hoisted_variant "f32col" launch one kernel and share its count
-HOISTED = CudaKernel("hoisted", "depthwise_hoist.cu", "depthwise_hoist_register", _ARGTYPES)
+HOISTED = CudaKernel("hoisted", "depthwise_hoist.cu", "depthwise_hoist", DEPTHWISE_ARGTYPES)
 VARIANTS = {
     "f32col": HOISTED,
-    "slab": CudaKernel("hoisted_variant_slab", "depthwise_hoist.cu",
-                       "depthwise_hoist_slab", _ARGTYPES),
+    "slab": CudaKernel("hoisted_variant_slab", "depthwise_hoist.cu", "depthwise_hoist_slab",
+                       DEPTHWISE_ARGTYPES),
 }
+
+
+def staged_itemsize(kernel: CudaKernel, x: torch.Tensor) -> int:
+    """Bytes of a staged element: 4 where the kernel holds its tile as f32."""
+    return 4 if kernel is VARIANTS["slab"] else x.element_size()
 
 
 def hoisted_plain(x: torch.Tensor, w9: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -56,11 +68,9 @@ def _run(kernel: CudaKernel, x: torch.Tensor, weights: torch.Tensor, dilation: i
     if uses_plain(kernel, x):
         return hoisted_plain(x, w9, dilation)
     refuse_grad(kernel, x, w9)
-    if not x.is_contiguous():
-        raise ValueError(f"{kernel.name} needs a contiguous NHWC input")
-    y = torch.empty_like(x)
-    kernel.launch(ptr(x), ptr(w9), ptr(y), h, w, c, dilation, _DTYPES[x.dtype])
-    return y
+    plan = depthwise_plan(h, w, c, dilation, x.element_size(), staged_itemsize(kernel, x),
+                          aligned=pointers_aligned(x, w9))
+    return launch_depthwise(kernel, x, w9, dilation, plan)
 
 
 def hoisted(x: torch.Tensor, kernel: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -76,9 +86,8 @@ def hoisted_variant(x: torch.Tensor, kernel: torch.Tensor, dilation: int,
                     kind: str) -> torch.Tensor:
     """P2: the same function as :func:`hoisted`; ``kind`` picks the design.
 
-    "f32col" runs :func:`hoisted`'s register kernel, "slab" the
-    shared-memory kernel (dilation at most 56: its halo must fit a block's
-    shared memory).
+    "f32col" runs :func:`hoisted`'s kernel (the tile staged in x's dtype),
+    "slab" the kernel that stages the tile as f32.
     """
     if kind not in VARIANTS:
         raise ValueError(f"unknown kind {kind!r} (f32col|slab)")
