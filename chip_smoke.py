@@ -41,10 +41,31 @@ Phases (any failure raises, so the exit code is non-zero):
    FusedFramePipeline window.  Each run: 8 frames fused, none dropped, the
    same launch counts as the main path, frames/s, and grid and map against
    the same run on the plain path.  Outputs go to the git-ignored build/.
-5. Where the time goes: ``torch.profiler`` over one more main-path frame
-   (inputs already on the card) and one more FusedOnlineNode frame (frame
-   and cloud from the host, through the bus), printing the device time of
-   the costliest kernels and copies and the device's busy share of each.
+5. The command line (``python -m vision_semantic_segmentation_tpu_torch``
+   through ``main(argv)``, in this process) at the same width and weights,
+   saved to ``build/chip_smoke_cli/weights.pth`` and named by a YAML
+   overlay's ``MODEL.WEIGHT``.  The main path's 8 frames, clouds and poses
+   are written as a ``.bag`` (12 Hz stamps) and an ``.npz`` with the port's
+   writers.  (a) ``pipeline --fused`` over the bag: launches K4 8, K2 8,
+   K1 1; its grid equals the main path's window, and its grid and written
+   map equal the same run on the plain path; frames/s from the first
+   decoded frame to the saved map.  (b) ``export`` of the bag equals the
+   frames written.  (c) ``replay`` of an ``.npz`` of the main path's
+   colourised labels (pre-segmented frames): launches K4 0, K2 8, K1 1,
+   against the plain path, frames/s; then ``--save-grid`` over the first
+   half and ``--resume-grid`` over the second equal one replay of both.
+   (d) ``pipeline --rate 1`` over phase 4's feed written as a bag at 12 Hz,
+   two-node and ``--fused``, each twice (the first run's executor threads
+   pay their first use of the card): fused + dropped = 8, at least one fused, K2
+   launches = frames fused, K4 = frames segmented, K1 1, no callback
+   errors, a finite non-empty grid.
+6. Where the time goes: ``torch.profiler`` over one more main-path frame
+   (inputs already on the card), one more FusedOnlineNode frame (frame
+   and cloud from the host, through the bus) and one more call each of
+   ``pipeline --fused`` and ``replay``, printing the device time of the
+   costliest kernels and copies and the device's busy share of each; and
+   the fused CLI path's host steps (decode, staging, window, render, PNG)
+   one at a time.
 
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
@@ -52,9 +73,12 @@ The last two lines are the kernel summary JSON and the device JSON; the
 from __future__ import annotations
 
 import json
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -66,14 +90,24 @@ from vision_semantic_segmentation_tpu_torch.mapping import LABEL_COLORS, PCD_ORI
 from vision_semantic_segmentation_tpu_torch.ops import kernels as K
 from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise, fold, render
 from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise_hoist as hoist
-from vision_semantic_segmentation_tpu_torch.inference import SemanticSegmentation
+from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
+from vision_semantic_segmentation_tpu_torch.inference import (
+    SemanticSegmentation,
+    colorize_labels,
+    postprocess_labels,
+)
+from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
 from vision_semantic_segmentation_tpu_torch.runtime import (
+    FrameRecord,
     FusedFramePipeline,
     FusedOnlineNode,
     MappingNode,
     MappingReplay,
     SegmentationNode,
     TopicBus,
+    load_frames,
+    rosbag,
+    save_frames,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -474,12 +508,14 @@ def print_variants(table: dict) -> None:
           f"{'faster' if k4 < k3 else 'slower'})", flush=True)
 
 
-def check_launches(what: str, launches: dict) -> None:
-    """One window of the serving paths: one K4 forward and one K2 fold per
-    frame, one K1 finalize; K3 and the probe kernels stay off the path."""
+def check_launches(what: str, launches: dict, k4: int = WINDOW, k2: int = WINDOW,
+                   k1: int = 1) -> None:
+    """One window of the serving paths: by default one K4 forward and one K2
+    fold per frame, one K1 finalize; K3 and the probe kernels stay off the
+    path."""
     expected = {k.name: 0 for k in K.kernels()}
-    expected.update({"aspp_depthwise3x3_multi": WINDOW, "evidence_fold_add": WINDOW,
-                     "render_bev_map_fused": 1})
+    expected.update({"aspp_depthwise3x3_multi": k4, "evidence_fold_add": k2,
+                     "render_bev_map_fused": k1})
     if launches != expected:
         raise AssertionError(f"{what}: launch counts {launches} != expected {expected}")
 
@@ -708,6 +744,255 @@ def online_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
         raise AssertionError(f"{what}: the confidences changed no evidence")
 
 
+CLI = REPO / "build" / "chip_smoke_cli"
+XYZI = [rosbag.PointField(f, 4 * i, 7, 1) for i, f in enumerate(("x", "y", "z", "intensity"))]
+
+
+def read_png(path: Path) -> np.ndarray:
+    """An RGB PNG as ``runtime/replay.py::write_png`` writes it (8 bits, no
+    row filter, channels reversed), back as the array it was given: one
+    reader for both sides of a comparison."""
+    data, off, idat = path.read_bytes(), 8, b""
+    while off < len(data):
+        n, kind = struct.unpack(">I4s", data[off:off + 8])
+        body = data[off + 8:off + 8 + n]
+        if kind == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        off += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (rows[:, 0] != 0).any():
+        raise ValueError(f"{path}: a row filter this reader does not undo")
+    return rows[:, 1:].reshape(h, w, 3)[..., ::-1]
+
+
+def overlay(name: str, weights: Path, mapping: str = "", extra: str = "") -> str:
+    """A YAML overlay naming the weights and a fresh output directory."""
+    path = CLI / f"{name}.yaml"
+    path.write_text(
+        f"OUTPUT_DIR: '{CLI / 'out' / name}'\n{extra}"
+        + (f"MAPPING:\n{mapping}" if mapping else "")
+        + f"VISION_SEM_SEG:\n  SEM_SEG_NETWORK:\n    MODEL:\n      WEIGHT: '{weights}'\n")
+    return str(path)
+
+
+def written_map(name: str, file: str) -> np.ndarray:
+    (path,) = (CLI / "out" / name).glob(f"version_*/{file}")
+    return read_png(path)
+
+
+def write_bag(path: Path, records) -> None:
+    """(topic, message) per record with the records' header stamps, one
+    chunk, through the port's writer."""
+    rosbag.write_bag(str(path), [(t, m, m.header.stamp) for t, m in records])
+
+
+def frame_messages(stamp: float, camera: str, image, cloud, frame_id, position, quaternion):
+    header = rosbag.Header(0, stamp, frame_id)
+    pts = np.ascontiguousarray(np.asarray(cloud, np.float32).T)
+    return [
+        ("/reduced_map" if frame_id == "world" else "/points_raw",
+         rosbag.PointCloud2Msg(header, 1, pts.shape[0], XYZI, 16, pts.tobytes())),
+        ("/current_pose", rosbag.PoseStampedMsg(rosbag.Header(0, stamp, "world"),
+                                                np.float64(position), np.float64(quaternion))),
+        (f"/{camera}/image_raw", rosbag.ImageMsg(rosbag.Header(0, stamp, camera),
+                                                 *image.shape[:2], "rgb8", image)),
+    ]
+
+
+def launches_now() -> dict:
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in K.kernels()}
+
+
+def cli_fused(pipeline: FusedFramePipeline, host: dict, weights: Path, smi: str) -> None:
+    """(a) ``pipeline --fused`` over the main path's window as a .bag."""
+    bag = CLI / "main_window.bag"
+    K.reset_launch_counts()
+    run = cli_main(["pipeline", "--cfg", overlay("fused", weights), "--bag", str(bag), "--fused"])
+    launches = launches_now()
+    print(f"CLI fused pipeline over a .bag: {run.frames} frames in {run.seconds:.3f} s, "
+          f"{run.frames / run.seconds:.3f} frames/s (host clock, first decoded frame to the "
+          f"saved map) on {smi}; launches {launches}", flush=True)
+    check_launches("CLI fused pipeline", launches)
+    color_map = written_map("fused", "global_map_fused.png")
+    if run.frames != WINDOW or not np.array_equal(color_map, run.color_map):
+        raise AssertionError(f"CLI fused pipeline: {run.frames} frames, or a written map "
+                             "that is not the map it rendered")
+    # the same frames straight from the card, with no bag, staging or stream
+    direct = pipeline.run_window(pipeline.init_grid(),
+                                 {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+    diff = float((run.grid - direct).abs().max())
+    print(f"  CLI grid against the main path's window: max |diff| {diff}", flush=True)
+    if not torch.allclose(run.grid, direct, atol=1e-3):
+        raise AssertionError(f"CLI fused grid differs from the main path's by {diff}")
+    with K.plain_versions():
+        plain = cli_main(["pipeline", "--cfg", overlay("fused_plain", weights), "--bag",
+                          str(bag), "--fused"])
+    compare_with_plain("CLI fused pipeline", run.grid, color_map, plain.grid,
+                       written_map("fused_plain", "global_map_fused.png"))
+
+
+def cli_export(records: list) -> None:
+    """(b) ``export`` of the bag: the frames written."""
+    out = CLI / "exported.npz"
+    cli_main(["export", str(CLI / "main_window.bag"), "--out", str(out)])
+    back = load_frames(str(out))
+    same = len(back) == len(records) and all(
+        (a.camera, a.pcd_frame_id) == (b.camera, b.pcd_frame_id) and abs(a.stamp - b.stamp) < 1e-6
+        and all(np.array_equal(np.asarray(getattr(a, k)), np.asarray(getattr(b, k)))
+                for k in ("pcd", "semantic_image", "position", "quaternion"))
+        for a, b in zip(back, records))
+    print(f"CLI export of the .bag: {len(back)} frames, equal to the frames written: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("export of the .bag differs from the frames written")
+
+
+def cli_replay(pipeline: FusedFramePipeline, records: list, weights: Path, smi: str) -> None:
+    """(c) ``replay`` of pre-segmented frames: the main path's labels, coloured."""
+    palette = palette_from_cfg(pipeline.cfg.VISION_SEM_SEG.SEM_SEG_NETWORK)
+    segmented = []
+    for f in records:
+        logits = pipeline.segment(torch.from_numpy(f.semantic_image).cuda())
+        labels = logits.argmax(1)[0].to(torch.int32)
+        rgb = colorize_labels(postprocess_labels(labels, IMAGE_HW), palette).cpu().numpy()
+        segmented.append(FrameRecord(**{**f.__dict__, "semantic_image": rgb}))
+    dirs = {name: CLI / name for name in ("replay_all", "replay_first", "replay_second")}
+    for name, part in (("replay_all", segmented), ("replay_first", segmented[:WINDOW // 2]),
+                       ("replay_second", segmented[WINDOW // 2:])):
+        dirs[name].mkdir()
+        save_frames(part, str(dirs[name] / "labels.npz"))
+
+    def replay(name, *args):
+        return cli_main(["replay", "--cfg", overlay(name, weights), *args])
+
+    grids = {}
+    for name in ("replay", "replay_plain"):
+        def run():
+            return replay(name, "--input-dir", str(dirs["replay_all"]),
+                          "--save-grid", str(CLI / f"{name}_grid.npz"))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "replay":
+            run()
+            seconds = time.perf_counter() - t0
+            launches = launches_now()
+            print(f"CLI replay of {WINDOW} pre-segmented frames (.npz): {seconds:.3f} s, "
+                  f"{WINDOW / seconds:.3f} frames/s (host clock, the whole call: load, stage, "
+                  f"fuse, render, save) on {smi}; launches {launches}", flush=True)
+            check_launches("CLI replay", launches, k4=0)
+        else:
+            with K.plain_versions():
+                run()
+        with np.load(CLI / f"{name}_grid.npz") as z:
+            grids[name] = torch.from_numpy(z["grid"])
+    compare_with_plain("CLI replay", grids["replay"], written_map("replay", "global_map_combined.png"),
+                       grids["replay_plain"],
+                       written_map("replay_plain", "global_map_combined.png"))
+    replay("replay_first", "--input-dir", str(dirs["replay_first"]),
+           "--save-grid", str(CLI / "first_half.npz"))
+    replay("replay_second", "--input-dir", str(dirs["replay_second"]),
+           "--resume-grid", str(CLI / "first_half.npz"), "--save-grid", str(CLI / "both.npz"))
+    with np.load(CLI / "both.npz") as z:
+        resumed = torch.from_numpy(z["grid"])
+    diff = float((resumed - grids["replay"]).abs().max())
+    print(f"CLI replay --save-grid then --resume-grid over two halves against one replay of "
+          f"both: grid max |diff| {diff}", flush=True)
+    if not torch.allclose(resumed, grids["replay"], atol=1e-3):
+        raise AssertionError(f"resumed replay differs from one replay by {diff}")
+
+
+def cli_rate(weights: Path, smi: str) -> None:
+    """(d) ``pipeline --rate 1`` over phase 4's feed at 12 Hz, both topologies."""
+    bag = CLI / "online.bag"
+    feed = make_online_feed(seed=200)
+    write_bag(bag, [m for i, f in enumerate(feed) for m in frame_messages(
+        1.0 + i / 12, f["camera"], f["image"], f["cloud"], "velodyne", *f["pose"])])
+    mapping = "  DEPTH_METHOD: points_raw\n  BOUNDARY: [[1300, 1500], [480, 680]]\n"
+    # each topology twice: the first run's executor threads pay their
+    # first use of the card, the second's are comparable
+    for what, extra in (("two-node", []), ("two-node, again", []), ("fused node", ["--fused"]),
+                        ("fused node, again", ["--fused"])):
+        name = "rate_" + what.replace(", again", "_again").replace("-", "_").replace(" ", "_")
+        cfg = overlay(name, weights, mapping, extra="TEST_END_TIME: 1000000000000\n")
+        K.reset_launch_counts()
+        report = cli_main(["pipeline", "--cfg", cfg, "--bag", str(bag), "--rate", "1.0", *extra])
+        launches = launches_now()
+        dropped = report.dropped_total + report.dropped_frames
+        segmented = report.fused_frames if extra else sum(
+            n for t, n in report.processed.items() if t.startswith("seg:"))
+        print(f"CLI pipeline --rate 1.0 {what} (8 frames at 12 Hz, cameras alternating) on "
+              f"{smi}: published {report.published}, fused {report.fused_frames}, dropped "
+              f"{dropped} ({report.drops or 'no mailbox drops'}, {report.dropped_frames} "
+              f"unsynced), max lag {report.max_lag_s * 1e3:.3f} ms, wall "
+              f"{report.wall_duration_s:.3f} s for a {report.bag_duration_s:.3f} s bag; "
+              f"launches {launches}", flush=True)
+        frame_topics = ("image_raw", "semantic")
+        if (report.fused_frames + dropped != WINDOW or report.fused_frames < 1 or report.errors
+                or any(not t.endswith(frame_topics) for t in report.drops)):
+            raise AssertionError(f"CLI --rate {what}: fused {report.fused_frames}, dropped "
+                                 f"{dropped}, drops {report.drops}, errors {report.errors}")
+        check_launches(f"CLI --rate {what}", launches, k4=segmented, k2=report.fused_frames)
+        grid = report.grid
+        if not bool(torch.isfinite(grid).all()) or float(grid.sum()) <= 0:
+            raise AssertionError(f"CLI --rate {what}: grid not finite or empty")
+
+
+def cli_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """The command line at full width, in this process, over recordings of
+    the main path's window and of the online feed."""
+    shutil.rmtree(CLI, ignore_errors=True)
+    CLI.mkdir(parents=True)
+    weights = CLI / "weights.pth"
+    torch.save(pipeline.model.state_dict(), weights)
+    host = {k: v.cpu().numpy() for k, v in frames.items()}
+    records = [FrameRecord(pcd=host["pcd"][i], pcd_frame_id="world",
+                           semantic_image=host["image"][i], position=host["position"][i],
+                           quaternion=host["quaternion"][i], stamp=1.0 + i / 12)
+               for i in range(WINDOW)]
+    t0 = time.perf_counter()
+    write_bag(CLI / "main_window.bag", [m for f in records for m in frame_messages(
+        f.stamp, f.camera, f.semantic_image, f.pcd, "world", f.position, f.quaternion)])
+    save_frames(records, str(CLI / "main_window.npz"))
+    print(f"CLI recordings written ({time.perf_counter() - t0:.1f} s)", flush=True)
+    cli_fused(pipeline, host, weights, smi)
+    cli_export(records)
+    cli_replay(pipeline, records, weights, smi)
+    cli_rate(weights, smi)
+
+
+def cli_host_steps(pipeline: FusedFramePipeline, smi: str) -> None:
+    """The steps of ``pipeline --fused`` over the .bag one at a time, host
+    clock with the card synchronised after each: decode, staging, the fused
+    window, render and copy back, the PNG."""
+    from vision_semantic_segmentation_tpu_torch.runtime.bag_adapter import stream_bag_frames
+    from vision_semantic_segmentation_tpu_torch.runtime.replay import write_png
+
+    replay = MappingReplay(pipeline.cfg, engine=pipeline.engine)
+    steps = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    frames = timed("decode", lambda: list(stream_bag_frames(str(CLI / "main_window.bag"))))
+    staged = timed("stage", lambda: replay._stage(frames, min_len=1).wait())
+    grid = timed("fuse", lambda: pipeline.run_window(pipeline.init_grid(), staged))
+    color_map = timed("render and copy", lambda: render.unpack_rgba_image(
+        render.render_bev_map_fused(grid, LABEL_COLORS)).cpu().numpy())
+    timed("PNG", lambda: write_png(str(CLI / "steps.png"), color_map))
+    print(f"CLI fused path step by step on {smi}, host clock, ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+          + f"; total {sum(steps.values()):.2f} for {len(frames)} frames", flush=True)
+
+
 def where_time_goes(what: str, step, top: int = 12) -> None:
     """Device time by kernel over one call of ``step``, from ``torch.profiler``.
 
@@ -834,6 +1119,7 @@ def main() -> None:
     print_variants(table)
     pipeline, frames = main_path(entries, smi)
     online_phase(pipeline, frames, smi)
+    cli_phase(pipeline, frames, smi)
 
     args = [frames[k][1] for k in ("image", "pcd", "valid", "position", "quaternion")]
     grid = pipeline.init_grid()
@@ -844,6 +1130,14 @@ def main() -> None:
     publish_feed(bus, feed[:2])  # both cameras once
     where_time_goes("one online frame (FusedOnlineNode, frame and cloud from the host)",
                     lambda: publish_feed(bus, feed[2:]))
+    cli_host_steps(pipeline, smi)
+    weights = CLI / "weights.pth"
+    where_time_goes("CLI pipeline --fused over the .bag (the whole call)", lambda: cli_main([
+        "pipeline", "--cfg", overlay("fused_profiled", weights), "--bag",
+        str(CLI / "main_window.bag"), "--fused"]), top=6)
+    where_time_goes("CLI replay of the pre-segmented .npz (the whole call)", lambda: cli_main([
+        "replay", "--cfg", overlay("replay_profiled", weights), "--input-dir",
+        str(CLI / "replay_all")]), top=6)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -24,6 +24,7 @@ from vision_semantic_segmentation_tpu_torch.ops.kernels.depthwise import (
     launch_depthwise,
 )
 from vision_semantic_segmentation_tpu_torch.ops.kernels.depthwise_hoist import hoisted_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # kernel -> (walks along rows: column-major sums, tile held as f32, plain version)

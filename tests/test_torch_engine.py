@@ -17,6 +17,7 @@ from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
 from vision_semantic_segmentation_tpu_torch.runtime import MappingReplay, io
 
 from test_mapping import make_frame, small_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N_FRAMES = 3
 

@@ -15,6 +15,7 @@ from vision_semantic_segmentation_tpu_torch.geometry import camera, transforms
 from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
 
 from test_mapping import make_frame, small_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 @pytest.fixture

@@ -23,6 +23,7 @@ from vision_semantic_segmentation_tpu_torch.ops.kernels.depthwise import (
     aspp_plan,
     launch_multi,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 

@@ -47,6 +47,7 @@ from vision_semantic_segmentation_tpu_torch.ops.kernels import (
     unpack_rgba_image,
 )
 from vision_semantic_segmentation_tpu_torch.ops.kernels._lib import refuse_grad
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -33,6 +33,7 @@ from vision_semantic_segmentation_tpu_torch.models import (
 from vision_semantic_segmentation_tpu_torch.models import layers
 from vision_semantic_segmentation_tpu_torch.models.layers import DepthwiseConv2d
 from vision_semantic_segmentation_tpu_torch.models.resnet import BasicBlock, Bottleneck
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ATOL = 1e-4
 

@@ -64,7 +64,11 @@ from vision_semantic_segmentation_tpu_torch.runtime import (
     nearest_stamp_index,
 )
 
+from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
+from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
+
 from test_torch_models import _randomize_bn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 IMAGE_HW = (1440, 1920)
 SCALE = 1.0 / 32
@@ -407,10 +411,19 @@ def _spatial(cfg, bus):
     SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
 
 
+def _decode_ahead_executor(cfg, bus):
+    run_online(cfg, "drive.bag", decode_ahead=True, device="cpu")
+
+
+def _decode_ahead_cli(cfg, bus):
+    """The decode-ahead feed, which applies /tf ahead of its frames."""
+    cli_main(["pipeline", "--bag", "drive.bag", "--rate", "1", "--decode-ahead",
+              "--device", "cpu"])
+
+
 @pytest.mark.parametrize("make", [
     lambda cfg, bus: SegmentationNode(cfg, bus, publish_hulls=True, device="cpu"),
-    lambda cfg, bus: SegmentationNode(cfg, bus, executor=object(), device="cpu"),
-    lambda cfg, bus: MappingNode(cfg, bus, tf_tree=object(), device="cpu"),
+    _decode_ahead_executor, _decode_ahead_cli,
     _planar, _qpack, _spatial,
 ], ids=["hulls", "executor", "tf_tree", "planar", "qpack", "spatial_shards"])
 def test_unported_options_refused(make, tmp_path):

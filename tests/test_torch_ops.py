@@ -13,6 +13,7 @@ from vision_semantic_segmentation_tpu.ops import colormap as jcolormap
 from vision_semantic_segmentation_tpu.ops import filters as jfilters
 from vision_semantic_segmentation_tpu.ops import resize as jresize
 from vision_semantic_segmentation_tpu_torch.ops import colormap, filters, resize
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ATOL = 1e-6
 

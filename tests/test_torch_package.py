@@ -24,6 +24,9 @@ from vision_semantic_segmentation_tpu_torch.runtime import (
     SegmentationNode,
     TopicBus,
 )
+from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
+from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -77,8 +80,10 @@ def test_config_copy_matches():
     lambda cfg: SegmentationNode(cfg, TopicBus()),
     lambda cfg: MappingNode(cfg, TopicBus()),
     lambda cfg: FusedOnlineNode(cfg, TopicBus(), state_dict={}),
+    lambda cfg: run_online(cfg, "drive.bag"),
+    lambda cfg: cli_main(["replay", "--input-dir", "logs"]),
 ], ids=["pipeline", "replay", "engine", "build_model", "predictor", "segmentation_node",
-        "mapping_node", "fused_online_node"])
+        "mapping_node", "fused_online_node", "run_online", "cli"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

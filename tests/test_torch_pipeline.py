@@ -31,6 +31,7 @@ from vision_semantic_segmentation_tpu_torch.models import flax_to_state_dict
 from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline, MappingReplay
 
 from test_torch_models import _randomize_bn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N_FRAMES = 3
 IMAGE_HW = (1440, 1920)
@@ -104,9 +105,10 @@ def slice_run(tmp_path_factory):
     pipe = FusedFramePipeline(cfg, state_dict=flax_to_state_dict(variables),
                               compute_dtype=torch.float32, distortion="points", device="cpu")
     grid = pipe.run_window(pipe.init_grid(), {k: torch.from_numpy(v) for k, v in frames.items()})
-    t_map = MappingReplay(cfg, engine=pipe.engine, device="cpu").finalize(grid, "port")
+    replay = MappingReplay(cfg, engine=pipe.engine, device="cpu")
+    t_map = replay.finalize(grid, "port")
     return dict(j_grid=j_grid, grid=grid.numpy(), j_map=j_map, map=t_map, gt_dir=str(gt_dir),
-                out_dir=out_dir)
+                out_dir=replay.output_dir)
 
 
 def test_grid_matches(slice_run):
@@ -125,7 +127,7 @@ def test_rendered_map_matches(slice_run):
     # finalize wrote the PNG; cv2 reads back the array it was given
     import cv2
 
-    np.testing.assert_array_equal(cv2.imread(str(slice_run["out_dir"] / "global_map_port.png")), t_map)
+    np.testing.assert_array_equal(cv2.imread(f"{slice_run['out_dir']}/global_map_port.png"), t_map)
 
 
 def test_scores_match(slice_run):

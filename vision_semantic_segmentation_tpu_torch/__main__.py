@@ -1,0 +1,271 @@
+"""Command line of the PyTorch/CUDA port.
+
+Port of ``vision_semantic_segmentation_tpu/__main__.py`` (the reference's
+roslaunch files and scripts, ref README.md:113,127), with its commands'
+flags:
+
+    python -m vision_semantic_segmentation_tpu_torch replay   --cfg exp.yaml [--input-dir d]
+                                                              [--resume-grid g] [--save-grid g]
+    python -m vision_semantic_segmentation_tpu_torch pipeline --cfg exp.yaml --bag seq.{npz,hkl,pkl,bag}
+                                                              [--fused [--confidence]] [--rate R]
+    python -m vision_semantic_segmentation_tpu_torch export   input.{hkl,pkl,bag} [--out f.npz]
+    python -m vision_semantic_segmentation_tpu_torch eval     --maps dir --gt dir
+
+Every command that runs the system takes ``--device {cuda,cpu}`` (default
+``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
+On the card, replay runs K2 per frame and K1 per map; ``pipeline`` adds K4
+per segmented frame.  The network runs in ``MODEL.COMPUTE_DTYPE`` (bf16 by
+default).  Not ported yet (ROADMAP queue 1): ``train``, ``convert``,
+``compile``, ``quantize``, ``autotune``, ``profile`` and ``video``,
+``replay --frame-parallel`` and ``pipeline --decode-ahead``.
+
+``main(argv)`` returns the command's result: replay the rendered maps,
+``pipeline`` a :class:`FusedRun` (``--fused``), the
+:class:`~.runtime.async_bus.PlaybackReport` (``--rate``) or the
+:class:`~.runtime.node.MappingNode` (the two-node dataflow), ``export`` the
+frames written, ``eval`` the scores.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os.path as osp
+import time
+
+import numpy as np
+import torch
+
+
+def _load_app_cfg(config_files):
+    """Merge one or more YAML files over the defaults, in order."""
+    from .config import get_cfg_defaults
+
+    cfg = get_cfg_defaults()
+    for path in config_files or []:
+        cfg.merge_from_file(path)
+    return cfg
+
+
+def cmd_replay(args):
+    from .runtime.replay import MappingReplay
+
+    cfg = _load_app_cfg(args.cfg)
+    if args.input_dir:
+        cfg.MAPPING.INPUT_DIR = args.input_dir
+    return MappingReplay(cfg, device=args.device).replay_dir(
+        resume_grid=args.resume_grid or None, save_grid=args.save_grid or None)
+
+
+def _read_frames(path: str):
+    """Recorded frames of a ``.bag`` (decoded on a worker thread as they
+    are consumed), ``.npz``, ``.hkl`` or ``.pkl``."""
+    from .runtime.io import load_frames, load_reference_dump
+
+    if path.endswith(".bag"):
+        from .runtime.bag_adapter import stream_bag_frames
+
+        return stream_bag_frames(path)
+    if path.endswith(".npz"):
+        return load_frames(path)
+    return load_reference_dump(path)
+
+
+def cmd_pipeline(args):
+    """Run both nodes in-process over a recorded sequence (camera1_mapping).
+
+    ``--fused`` runs the fused frame pipeline over windows of 8 frames
+    instead of the two-node dataflow; ``--rate`` plays a ``.bag`` on its own
+    timeline through nodes on executor threads, overload surfacing as
+    dropped frames (with ``--fused``: one FusedOnlineNode).
+    """
+    from .mapping.engine import SemanticMappingEngine
+    from .runtime.bus import TopicBus
+    from .runtime.node import MappingNode, SegmentationNode
+    from .utils.ros_compat import TransformTree
+
+    cfg = _load_app_cfg(args.cfg)
+    if args.decode_ahead:
+        from .runtime.async_bus import DECODE_AHEAD_REFUSED
+
+        raise NotImplementedError(DECODE_AHEAD_REFUSED)
+    if args.fused and not args.rate:
+        return _fused_pipeline(cfg, args.bag, confidence=args.confidence, device=args.device)
+    if args.rate:
+        if not args.bag.endswith(".bag"):
+            raise SystemExit(
+                "--rate needs a ROS .bag recording (its timeline drives the wall clock); use "
+                "`export` to convert, or replay .npz sequences offline without --rate")
+        from .runtime.async_bus import run_online
+
+        report = run_online(cfg, args.bag, rate=float(args.rate), fused=args.fused,
+                            device=args.device)
+        print(f"online replay @ {report.rate}x: {report.published} msgs in "
+              f"{report.wall_duration_s:.1f}s (bag {report.bag_duration_s:.1f}s), "
+              f"fused {report.fused_frames}, dropped {report.dropped_total} "
+              f"({report.drops or 'none'}) + {report.dropped_frames} unsynced, "
+              f"max lag {report.max_lag_s * 1e3:.0f} ms")
+        return report
+    bus = TopicBus()
+    SegmentationNode(cfg, bus, device=args.device)
+    node = MappingNode(cfg, bus, engine=SemanticMappingEngine(cfg, device=args.device),
+                       tf_tree=TransformTree())
+    if args.bag.endswith(".bag"):
+        from .runtime.bag_adapter import play_bag
+
+        # the node folds /tf bus messages into its tree; passing the tree
+        # here as well would apply every transform twice
+        play_bag(args.bag, bus)
+    else:
+        frames = _read_frames(args.bag)
+        # clouds go on the topic MAPPING.DEPTH_METHOD selects
+        for f in frames:
+            bus.publish(node.pcd_topic, f.pcd, stamp=f.stamp, frame_id=f.pcd_frame_id)
+            bus.publish("/current_pose", (f.position, f.quaternion), stamp=f.stamp)
+            bus.publish(f"/{f.camera}/image_raw", f.semantic_image, stamp=f.stamp,
+                        frame_id=f.camera)
+    if node.grid is not None and node.finalized_map is None:
+        node.finalize()
+    return node
+
+
+@dataclasses.dataclass
+class FusedRun:
+    """What ``pipeline --fused`` made: the grid, the rendered map, the
+    frames fused, and the host-clock seconds from the first decoded frame
+    to the saved map."""
+
+    grid: torch.Tensor
+    color_map: np.ndarray
+    frames: int
+    seconds: float
+
+
+def _fused_pipeline(cfg, bag_path: str, confidence: bool = False, device="cuda") -> FusedRun:
+    """Raw frames -> FusedFramePipeline windows -> finalized map (+ eval).
+
+    Reuses MappingReplay's chunking and staging with the fused pipeline
+    running each staged window.  Distortion follows
+    ``VISION_SEM_SEG.UNDISTORT``: True means raw camera frames, handled on
+    the projected points; False means rectified frames and a pinhole
+    projection.  ``confidence`` weights each point's evidence by the
+    network's softmax confidence at its pixel.
+    """
+    from .inference.predictor import _DTYPES
+    from .mapping.engine import SemanticMappingEngine
+    from .models.convert import load_weights
+    from .runtime.pipeline import FusedFramePipeline
+    from .runtime.replay import MappingReplay
+
+    net_cfg = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    if not net_cfg.MODEL.WEIGHT:
+        raise ValueError("VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.WEIGHT is empty")
+    engine = SemanticMappingEngine(cfg, device=device)
+    undistort = bool(cfg.VISION_SEM_SEG.get("UNDISTORT", True))
+    pipeline = FusedFramePipeline(
+        cfg, load_weights(net_cfg.MODEL.WEIGHT), engine=engine,
+        compute_dtype=_DTYPES[net_cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")],
+        distortion="points" if undistort else "none",
+        confidence_weighting=confidence, device=device)
+    replay = MappingReplay(cfg, engine=engine)
+
+    clock = {}
+
+    def timed(frames):
+        for f in frames:
+            clock.setdefault("first_frame", time.perf_counter())
+            yield f
+
+    grid = pipeline.init_grid()
+    n_fused = 0
+    for chunk in replay._chunk_frames(timed(_read_frames(bag_path)), window=8):
+        n_fused += len(chunk)
+        grid = pipeline.run_window(grid, replay._stage(chunk, min_len=1).wait(),
+                                   camera=chunk[0].camera, pcd_frame_id=chunk[0].pcd_frame_id)
+    if n_fused == 0:
+        raise SystemExit(f"no frames in {bag_path}")
+    color_map = replay.finalize(grid, name="fused")
+    return FusedRun(grid, color_map, n_fused, time.perf_counter() - clock["first_frame"])
+
+
+def cmd_eval(args):
+    from .evaluation.map_eval import MapEvaluator
+
+    return MapEvaluator(ground_truth_dir=args.gt).full_test(
+        dir_path=args.maps, latex_mode=args.latex, verbose=True)
+
+
+def cmd_export(args):
+    """Carry a recorded input (``.hkl``, ``.pkl`` or ``.bag``) over to the
+    native ``.npz`` replay format."""
+    from .runtime.io import load_reference_dump, save_frames
+
+    src = args.input
+    if src.endswith(".bag"):
+        from .runtime.bag_adapter import bag_to_frames
+
+        frames = bag_to_frames(src, image_topic=args.image_topic, pcd_topic=args.pcd_topic,
+                               pose_topic=args.pose_topic)
+    else:
+        frames = load_reference_dump(src)
+    out = args.out or osp.splitext(src)[0] + ".npz"
+    save_frames(frames, out)
+    print(f"wrote {out} ({len(frames)} frames)")
+    return frames
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="vision_semantic_segmentation_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def add_cfg_and_device(p):
+        p.add_argument("--cfg", action="append", default=[], metavar="FILE",
+                       help="experiment YAML; repeat to merge overlays in order")
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="where the system runs (default cuda; raises without a card)")
+
+    p = sub.add_parser("replay", help="offline deterministic mapping replay")
+    add_cfg_and_device(p)
+    p.add_argument("--input-dir", default="")
+    p.add_argument("--resume-grid", default="", metavar="NPZ",
+                   help="seed the evidence grid from a checkpoint (threads ONE grid "
+                        "through all input files -> a single combined map)")
+    p.add_argument("--save-grid", default="", metavar="NPZ",
+                   help="checkpoint the evidence grid after the last input file")
+    p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("pipeline", help="run seg+mapping nodes over a recorded sequence")
+    add_cfg_and_device(p)
+    p.add_argument("--bag", required=True, help=".npz, .hkl or .pkl sequence, or ROS .bag file")
+    p.add_argument("--fused", action="store_true",
+                   help="fused frame pipeline over windows of 8 frames; with --rate: one "
+                        "FusedOnlineNode instead of the two-node topology")
+    p.add_argument("--rate", type=float, default=0.0, metavar="R",
+                   help="online mode: play the bag at R x real time through concurrently "
+                        "executing nodes; overload drops frames (reported)")
+    p.add_argument("--confidence", action="store_true",
+                   help="with --fused: weight each point's evidence by the network's softmax "
+                        "confidence at its pixel")
+    p.add_argument("--decode-ahead", action="store_true", dest="decode_ahead",
+                   help="not ported yet (raises)")
+    p.set_defaults(fn=cmd_pipeline)
+
+    p = sub.add_parser("eval", help="score generated maps against ground truth")
+    p.add_argument("--maps", default="./global_maps")
+    p.add_argument("--gt", default="./ground_truth")
+    p.add_argument("--latex", action="store_true")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("export", help="convert a recorded input (.hkl/.pkl/.bag) to .npz")
+    p.add_argument("input")
+    p.add_argument("--out", default=None)
+    p.add_argument("--image-topic", default="/camera1/image_raw")
+    p.add_argument("--pcd-topic", default="/reduced_map")
+    p.add_argument("--pose-topic", default="/current_pose")
+    p.set_defaults(fn=cmd_export)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-from .camera import Camera, camera_setup_1, camera_setup_6
+from .camera import Camera, camera_from_extrinsic, camera_setup_1, camera_setup_6, get_camera
 from .transforms import (
     euler_matrix,
     homogenize,
@@ -10,8 +10,10 @@ from .transforms import (
 
 __all__ = [
     "Camera",
+    "camera_from_extrinsic",
     "camera_setup_1",
     "camera_setup_6",
+    "get_camera",
     "euler_matrix",
     "homogenize",
     "mm",

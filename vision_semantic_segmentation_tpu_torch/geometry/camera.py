@@ -4,7 +4,8 @@ Port of ``vision_semantic_segmentation_tpu/geometry/camera.py`` (the parts
 the mapping and online paths use): a frozen calibration container with
 host-numpy P, K and P_norm, the plumb-bob forward model on tensors, and the
 host-side inverse map for image undistortion.  The two vehicle cameras'
-calibrations (ref camera.py:102-135) are the same numbers.  Ray casting
+calibrations (ref camera.py:102-135) are the same numbers, and
+``camera_from_extrinsic`` rebuilds one from TF extrinsics.  Ray casting
 (``pixel_to_ray``, for the hull markers) is not ported yet.
 """
 from __future__ import annotations
@@ -119,6 +120,20 @@ def camera_setup_6() -> Camera:
     t = -R @ Rt[0:3, 3:4]
     dist = np.array([-0.191070, 0.100324, 0.004250, -0.003317, 0.000000])
     return Camera(K=K, R=R, t=t, im_size=(1920, 1440), id=6, dist=dist)
+
+
+def camera_from_extrinsic(base: Camera, T_cam_to_velodyne: np.ndarray) -> Camera:
+    """Camera with ``base``'s intrinsics but TF-derived extrinsics.
+
+    The reference resolves camera->base_link from the live TF tree at node
+    startup and composes it with the pose for projection (ref
+    mapping.py:142-163, get_extrinsics :528-541); this is the static half of
+    that path: given camera->velodyne, rebuild P = K [R|t] with R, t mapping
+    velodyne-frame points into the camera frame.
+    """
+    T = np.linalg.inv(np.asarray(T_cam_to_velodyne, dtype=np.float64))
+    return Camera(K=base.K, R=T[:3, :3], t=T[:3, 3:4], im_size=base.im_size, id=base.id,
+                  dist=base.dist)
 
 
 def get_camera(frame_id: str) -> Camera:

@@ -191,6 +191,7 @@ class SemanticMappingEngine:
         if cameras:
             self.cameras.update(cameras)
         self._step_fns: Dict[Tuple[str, bool], callable] = {}
+        self._runner_fns: Dict[Tuple[str, bool], callable] = {}
 
     # -- state --------------------------------------------------------------
     def init_grid(self) -> torch.Tensor:
@@ -454,6 +455,33 @@ class SemanticMappingEngine:
             return grid, cls, vis
 
         return step
+
+    def build_sequence_runner(self, camera: str = "camera1", pcd_frame_id: str = ""):
+        """Runner fusing a stacked window of pre-segmented frames, in place.
+
+        ``run(grid, frames)``: ``frames`` maps image (T, Hi, Wi, 3) u8, pcd
+        (T, 4, N), valid (T, N), position (T, 3) and quaternion (T, 4) to
+        tensors on the engine's device.  A loop over the window's frames
+        through the cached per-(camera, cloud-frame) step stands in for the
+        JAX package's ``lax.scan``; the grid never leaves the device.  The
+        runner is cached per (camera, cloud-frame), as the step is.
+        """
+        key = (camera, pcd_frame_id == "velodyne")
+        run = self._runner_fns.get(key)
+        if run is not None:
+            return run
+        if key not in self._step_fns:
+            self._step_fns[key] = self._build_step(*key)
+        step = self._step_fns[key]
+
+        def run(grid, frames):
+            for i in range(len(frames["image"])):
+                grid, _, _ = step(grid, frames["pcd"][i], frames["valid"][i], frames["image"][i],
+                                  frames["position"][i], frames["quaternion"][i])
+            return grid
+
+        self._runner_fns[key] = run
+        return run
 
     def as_tensor(self, a, dtype=None) -> torch.Tensor:
         """Host array (or tensor) -> tensor on the engine's device."""

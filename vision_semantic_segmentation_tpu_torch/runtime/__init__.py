@@ -1,5 +1,11 @@
 from .bus import Message, TopicBus, nearest_stamp_index
-from .io import FrameRecord, load_frames, save_frames
+from .io import (
+    FrameRecord,
+    iter_sequence_files,
+    load_frames,
+    load_reference_dump,
+    save_frames,
+)
 from .node import FusedOnlineNode, MappingNode, SegmentationNode
 from .pipeline import FusedFramePipeline, network_to_channel_table
 from .replay import MappingReplay, write_png
@@ -9,7 +15,9 @@ __all__ = [
     "TopicBus",
     "nearest_stamp_index",
     "FrameRecord",
+    "iter_sequence_files",
     "load_frames",
+    "load_reference_dump",
     "save_frames",
     "FusedOnlineNode",
     "MappingNode",

@@ -4,15 +4,19 @@ The reference records every mapping input to an ``input_list.hkl`` hickle
 file ({pcd, pcd_frame_id, semantic_image, pose} per frame, ref
 mapping.py:309-326) and replays it bit-identically offline
 (mapping_replay.py:146-211).  The native format here is ``.npz`` (one
-archive per sequence, per-frame keys).
+archive per sequence, per-frame keys); reference ``.hkl`` dumps load through
+:mod:`.hickle_io` (a hickle-schema reader over h5py) and pickled dumps
+through the same dataclass.
 
-Port copy of the ``.npz`` part of ``vision_semantic_segmentation_tpu/
-runtime/io.py``; the reference ``.hkl``/pickle readers are not ported yet.
+Port copy of ``vision_semantic_segmentation_tpu/runtime/io.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import os
+import os.path as osp
+import pickle
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -68,3 +72,59 @@ def load_frames(path: str) -> List[FrameRecord]:
             )
     return frames
 
+
+
+def _pose_to_arrays(pose) -> Tuple[np.ndarray, np.ndarray]:
+    """Extract position/quaternion from a ROS-style Pose object or dict."""
+    if isinstance(pose, dict):
+        p, o = pose["position"], pose["orientation"]
+        if isinstance(p, dict):
+            return (
+                np.array([p["x"], p["y"], p["z"]]),
+                np.array([o["x"], o["y"], o["z"], o["w"]]),
+            )
+        return np.asarray(p, dtype=np.float64), np.asarray(o, dtype=np.float64)
+    if isinstance(pose, np.ndarray) and pose.shape == (7,):
+        return pose[:3].astype(np.float64), pose[3:].astype(np.float64)
+    if hasattr(pose, "pose"):  # PoseStamped
+        pose = pose.pose
+    p, o = pose.position, pose.orientation
+    return np.array([p.x, p.y, p.z]), np.array([o.x, o.y, o.z, o.w])
+
+
+def load_reference_dump(path: str) -> List[FrameRecord]:
+    """Load a reference-format input_list (.hkl via hickle_io, or pickle).
+
+    Accepts the reference's list-of-dicts layout (ref mapping.py:309-313).
+    A ``.pkl`` is unpickled as it is: load only dumps you trust.
+    """
+    if path.endswith(".hkl"):
+        from .hickle_io import load_hickle
+
+        input_list = load_hickle(path)
+    else:
+        with open(path, "rb") as f:
+            input_list = pickle.load(f)
+
+    frames = []
+    for d in input_list:
+        position, quaternion = _pose_to_arrays(d["pose"])
+        frames.append(
+            FrameRecord(
+                pcd=np.asarray(d["pcd"]),
+                pcd_frame_id=str(d["pcd_frame_id"]),
+                semantic_image=np.asarray(d["semantic_image"]),
+                position=position,
+                quaternion=quaternion,
+            )
+        )
+    return frames
+
+
+def iter_sequence_files(input_dir: str) -> Iterator[str]:
+    """Yield replayable sequence files in a directory (ref :146-159)."""
+    if not osp.isdir(input_dir):
+        return
+    for name in sorted(os.listdir(input_dir)):
+        if name.endswith((".npz", ".pkl", ".hkl")):
+            yield osp.join(input_dir, name)

@@ -13,13 +13,16 @@ reference's ROS layer):
   :meth:`FusedFramePipeline.step` per frame, with the sync, drop accounting
   and finalize of :class:`MappingNode`.
 
-Topic names are the reference's.  Callbacks run inline on ``bus.publish``.
-Images, labelled clouds and the grid stay on the nodes' device (torch
-tensors); the finalized map is host numpy.  Not ported yet, and refused
-with ``NotImplementedError``: the crosswalk/road hull markers
-(``publish_hulls``; ROADMAP queue 1 item 7), a TF tree, the planar
-``DEPTH_METHOD`` (``engine.update_map_planar``; item 6) and the threaded
-executor (``async_bus.py``; item 7).
+Topic names are the reference's.  Callbacks run inline on ``bus.publish``,
+or serially on a :class:`~.async_bus.NodeExecutor`'s worker thread when
+one is given (the online mode).  A ``tf_tree`` takes ``/tf`` into a
+:class:`~..utils.ros_compat.TransformTree` and gives each camera its TF
+extrinsics before its first step.  Images, labelled clouds and the grid
+stay on the nodes' device (torch tensors); the finalized map is host numpy.
+Not ported yet, and refused with ``NotImplementedError``: the
+crosswalk/road hull markers (``publish_hulls``) and the planar
+``DEPTH_METHOD`` (``engine.update_map_planar``), both ROADMAP queue 1
+item 7.1.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 
 from ..config.defaults import resolve_output_dir
 from ..device import DeviceLike
-from ..geometry.camera import get_camera
+from ..geometry.camera import camera_from_extrinsic, get_camera
 from ..inference.predictor import (
     SemanticSegmentation,
     colorize_labels,
@@ -52,11 +55,13 @@ from .replay import write_png
 CLOUD_TOPICS = {"points_map": "/reduced_map", "points_raw": "/points_raw"}
 
 
-def _refuse_executor(executor) -> None:
-    if executor is not None:
-        raise NotImplementedError(
-            "executor: the threaded node executor (runtime/async_bus.py) is not ported "
-            "(ROADMAP queue 1 item 7); the nodes run inline on the bus")
+def _make_subscriber(bus: TopicBus, executor):
+    """Inline bus subscription, or through a NodeExecutor's bounded
+    mailboxes when one is given (the online mode, ``async_bus.py``)."""
+    if executor is None:
+        return lambda topic, cb, queue_size=1: bus.subscribe(topic, cb)
+    return lambda topic, cb, queue_size=1: executor.subscribe(bus, topic, cb,
+                                                              queue_size=queue_size)
 
 
 def _host(a) -> np.ndarray:
@@ -78,8 +83,8 @@ class SegmentationNode:
         if publish_hulls:
             raise NotImplementedError(
                 "publish_hulls: the hull markers need Camera.pixel_to_ray, geometry/plane.py "
-                "and utils/markers.py, which are not ported (ROADMAP queue 1 item 7)")
-        _refuse_executor(executor)
+                "and utils/markers.py, which are not ported (ROADMAP queue 1 item 7.1)")
+        _sub = _make_subscriber(bus, executor)
         self.cfg = cfg
         self.bus = bus
         net_cfg = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
@@ -98,7 +103,8 @@ class SegmentationNode:
                     pass
                 else:
                     self._undistort_maps[cam] = torch.from_numpy(maps).to(self.device)
-            bus.subscribe(f"/{cam}/image_raw", self.image_callback)
+            # keep-latest depth 1: a saturated stage drops stale frames
+            _sub(f"/{cam}/image_raw", self.image_callback, queue_size=1)
 
     def image_callback(self, msg: Message) -> None:
         """Per-frame path (ref node:74-136)."""
@@ -115,7 +121,9 @@ class MappingNode:
     """Semantic image + pose + cloud -> global BEV map (ref mapping.py:39-355).
 
     Cloud mode only (``MAPPING.DEPTH_METHOD`` ``points_map`` or
-    ``points_raw``).
+    ``points_raw``).  ``tf_tree``: a TransformTree fed from ``/tf``; a
+    camera whose frame it connects to ``base_link`` gets those extrinsics
+    before its first step.
     """
 
     #: image topics this node consumes; FusedOnlineNode takes raw frames
@@ -124,20 +132,18 @@ class MappingNode:
     def __init__(self, cfg, bus: TopicBus, engine: Optional[SemanticMappingEngine] = None,
                  record_inputs: bool = False, tf_tree=None, executor=None,
                  device: DeviceLike = "cuda"):
-        if tf_tree is not None:
-            raise NotImplementedError(
-                "tf_tree: TF-driven camera extrinsics and the local_map frame are not "
-                "ported (ROADMAP queue 1 item 7)")
-        _refuse_executor(executor)
+        _sub = _make_subscriber(bus, executor)
         self.depth_method = cfg.MAPPING.DEPTH_METHOD
         self.pcd_topic = CLOUD_TOPICS.get(self.depth_method)
         if self.pcd_topic is None:
             raise NotImplementedError(
                 f"MAPPING.DEPTH_METHOD={self.depth_method!r}: the planar path needs "
-                "engine.update_map_planar, which is not ported (ROADMAP queue 1 item 6); "
+                "engine.update_map_planar, which is not ported (ROADMAP queue 1 item 7.1); "
                 "use points_map or points_raw")
         self.cfg = cfg
         self.bus = bus
+        self.tf_tree = tf_tree
+        self._tf_cameras_registered: set = set()
         self.engine = engine or SemanticMappingEngine(cfg, device=device)
         self.grid: Optional[torch.Tensor] = None
         self.test_cut_time = cfg.TEST_END_TIME
@@ -160,12 +166,51 @@ class MappingNode:
         self.dropped_frames = 0
         self.fused_frames = 0
 
-        bus.subscribe("/current_pose", self.pose_callback)
+        # history topics get deep mailboxes (they feed this node's own sync
+        # queues); frames keep-latest depth 1
+        _sub("/current_pose", self.pose_callback, queue_size=256)
         for topic in self.IMAGE_TOPICS:
-            bus.subscribe(topic, self.image_callback)
-        bus.subscribe(self.pcd_topic, self.pcd_callback)
+            _sub(topic, self.image_callback, queue_size=1)
+        if tf_tree is not None:
+            _sub("/tf", self._tf_callback, queue_size=256)
+        _sub(self.pcd_topic, self.pcd_callback, queue_size=256)
 
     # -- callbacks -----------------------------------------------------------
+    def _tf_callback(self, msg: Message) -> None:
+        """Fold /tf messages into the tree (rosbag playback path)."""
+        for tr in getattr(msg.data, "transforms", []):
+            self.tf_tree.set_pose(
+                tr.translation, tr.rotation,
+                parent=tr.header.frame_id.lstrip("/"),
+                child=tr.child_frame_id.lstrip("/"),
+                stamp=tr.header.stamp,
+            )
+
+    def _maybe_register_tf_camera(self, camera: str) -> None:
+        """Camera extrinsics from TF, once, before the camera's first step.
+
+        The reference resolves camera->base_link from the live TF tree at
+        startup (ref mapping.py:142-163) and composes it with the pose
+        (ref :528-541).  If the tree carries the camera frame, the engine's
+        camera is rebuilt with those extrinsics; the built-in setup stays
+        the fallback.  A camera whose step was already built keeps its
+        built-in extrinsics, as in the JAX package, where that step is
+        compiled: a late ``/tf`` does not change it.
+        """
+        if self.tf_tree is None or camera in self._tf_cameras_registered:
+            return
+        if any(key[0] == camera for key in self.engine._step_fns):
+            self._tf_cameras_registered.add(camera)
+            return
+        try:
+            T_cam_to_base = self.tf_tree.lookup("base_link", camera)
+        except LookupError:
+            return  # no TF calibration yet: retry on later frames
+        self._tf_cameras_registered.add(camera)
+        T_cam_to_velo = np.linalg.inv(self.engine.T_velodyne_to_baselink) @ T_cam_to_base
+        self.engine.cameras[camera] = camera_from_extrinsic(get_camera(camera), T_cam_to_velo)
+        self.logger.log(f"Registered TF extrinsics for {camera}")
+
     def pcd_callback(self, msg: Message) -> None:
         self.pcd_queue.append(msg)
 
@@ -190,6 +235,7 @@ class MappingNode:
 
     def image_callback(self, msg: Message) -> None:
         """Fuse one frame (ref mapping.py:261-355)."""
+        self._maybe_register_tf_camera(msg.frame_id)
         if not self.pcd_queue:
             return self._drop(msg.stamp, "point cloud")
         pcd_msg = self._sync(self.pcd_queue, msg.stamp)
