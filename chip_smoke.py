@@ -41,6 +41,14 @@ Phases (any failure raises, so the exit code is non-zero):
    FusedFramePipeline window.  Each run: 8 frames fused, none dropped, the
    same launch counts as the main path, frames/s, and grid and map against
    the same run on the plain path.  Outputs go to the git-ignored build/.
+   (d) The planar ``DEPTH_METHOD`` with hull markers, two-node:
+   ``SegmentationNode(publish_hulls=True)`` into a planar MappingNode over a
+   5x2000x2000 grid at 0.02 m in front of the vehicle (BOUNDARY [[0, 40],
+   [-20, 20]]), one ``/estimated_plane``, then 8 frames alternating the
+   cameras with a moving pose: launches K4 8, K2 0, K1 1; the grid
+   non-empty and equal to the plain path's; markers on both topics (one
+   hull of each class also from a synthetic label map with known blobs),
+   every point on the plane to 1e-3 m; frames/s.
 5. The command line (``python -m vision_semantic_segmentation_tpu_torch``
    through ``main(argv)``, in this process) at the same width and weights,
    saved to ``build/chip_smoke_cli/weights.pth`` and named by a YAML
@@ -58,10 +66,18 @@ Phases (any failure raises, so the exit code is non-zero):
    two-node and ``--fused``, each twice (the first run's executor threads
    pay their first use of the card): fused + dropped = 8, at least one fused, K2
    launches = frames fused, K4 = frames segmented, K1 1, no callback
-   errors, a finite non-empty grid.
+   errors, a finite non-empty grid.  (e) The same with ``--decode-ahead``
+   (the bag decoded on a worker thread), both topologies, each twice, same
+   checks; then that bag with camera1's extrinsics on ``/tf`` at 0.5 s and
+   moved at 1.3 s, 0.3 s after camera1's first frame, through
+   ``run_online(fused=True, decode_ahead=True)``: the extrinsics registered
+   for camera1 are the ones in force at that frame's stamp.  Each run's
+   report is printed.
 6. Where the time goes: ``torch.profiler`` over one more main-path frame
    (inputs already on the card), one more FusedOnlineNode frame (frame
-   and cloud from the host, through the bus) and one more call each of
+   and cloud from the host, through the bus), one more planar two-node
+   frame with hulls (phase 4(d) also times the planar update alone) and
+   one more call each of
    ``pipeline --fused`` and ``replay``, printing the device time of the
    costliest kernels and copies and the device's busy share of each; and
    the fused CLI path's host steps (decode, staging, window, render, PNG)
@@ -86,7 +102,11 @@ import torch
 import torch.nn.functional as F
 
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
-from vision_semantic_segmentation_tpu_torch.mapping import LABEL_COLORS, PCD_ORIGIN_OFFSET
+from vision_semantic_segmentation_tpu_torch.mapping import (
+    LABEL_COLORS,
+    PCD_ORIGIN_OFFSET,
+    SemanticMappingEngine,
+)
 from vision_semantic_segmentation_tpu_torch.ops import kernels as K
 from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise, fold, render
 from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise_hoist as hoist
@@ -744,6 +764,127 @@ def online_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
         raise AssertionError(f"{what}: the confidences changed no evidence")
 
 
+PLANE = (0.0, 0.0, 1.0, 1.9)  # the ground 1.9 m below the velodyne
+
+
+def planar_cfg():
+    """The default configuration in the planar DEPTH_METHOD over a grid in
+    front of the vehicle: 40x40 m at 0.02 m, 5x2000x2000 as the default's."""
+    cfg = get_cfg_defaults()
+    cfg.MAPPING.DEPTH_METHOD = "planar"
+    cfg.MAPPING.BOUNDARY = [[0, 40], [-20, 20]]
+    cfg.MAPPING.RESOLUTION = 0.02
+    cfg.TEST_END_TIME = 1e12  # finalize explicitly, after the timed window
+    cfg.OUTPUT_DIR = str(REPO / "build" / "chip_smoke_planar")
+    return cfg
+
+
+def make_planar_feed(seed: int) -> list:
+    """8 raw frames alternating camera1/camera6; the vehicle drives 0.5 m
+    and turns 0.05 rad a frame."""
+    rng = np.random.default_rng(seed)
+    feed = []
+    for i in range(WINDOW):
+        yaw = 0.05 * i
+        feed.append({
+            "stamp": 1.0 + i, "camera": ("camera1", "camera6")[i % 2],
+            "image": rng.integers(0, 256, (*IMAGE_HW, 3), dtype=np.uint8),
+            "pose": (np.float64([0.5 * i, 0.1 * i, 0.0]),
+                     np.float64([0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)])),
+        })
+    return feed
+
+
+def synthetic_labels() -> np.ndarray:
+    """A label map at the network's output resolution with one crosswalk
+    (class 1) and one road (class 2) blob in the lower half."""
+    labels = np.zeros((180, 240), np.int32)
+    labels[120:160, 30:110] = 1
+    labels[110:175, 130:230] = 2
+    return labels
+
+
+def check_markers(what: str, markers: dict) -> int:
+    """Markers on both topics, every point on PLANE to 1e-3 m."""
+    n = np.array(PLANE[:3]) / np.linalg.norm(PLANE[:3])
+    d = PLANE[3] / np.linalg.norm(PLANE[:3])
+    worst, count = 0.0, {}
+    for topic, msgs in markers.items():
+        count[topic] = sum(len(m) for m in msgs)
+        for m in (m for msg in msgs for m in msg):
+            worst = max(worst, float(np.abs(m.points @ n + d).max()))
+    print(f"  {what}: markers {count}, worst distance to the plane {worst:.2e} m", flush=True)
+    if min(count.values()) < 1 or worst >= 1e-3:
+        raise AssertionError(f"{what}: markers {count}, worst distance {worst}")
+    return sum(count.values())
+
+
+def planar_run(what: str, state: dict, feed: list, smi: str):
+    """SegmentationNode(publish_hulls=True) -> planar MappingNode: one plane,
+    then the 8 frames, timed; finalize; then one synthetic hull of each
+    class.  Returns (grid, map, launches, markers from the frames)."""
+    cfg = planar_cfg()
+    bus = TopicBus()
+    predictor = SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, state_dict=state,
+                                     compute_dtype=torch.bfloat16, device="cuda")
+    seg = SegmentationNode(cfg, bus, predictor=predictor, publish_hulls=True)
+    node = MappingNode(cfg, bus, device="cuda")
+    markers = {"/crosswalk_markers": [], "/road_markers": []}
+    for topic, sink in markers.items():
+        bus.subscribe(topic, lambda m, sink=sink: sink.append(m.data))
+    bus.publish("/estimated_plane", list(PLANE), stamp=0.5)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for f in feed:
+        bus.publish("/current_pose", f["pose"], stamp=f["stamp"])
+        bus.publish(f"/{f['camera']}/image_raw", f["image"], stamp=f["stamp"],
+                    frame_id=f["camera"])
+    torch.cuda.synchronize()
+    t_window = time.perf_counter() - t0
+    color_map = node.finalize()
+    launches = launches_now()
+    from_frames = {t: sum(len(m) for m in msgs) for t, msgs in markers.items()}
+    print(f"{what}: {WINDOW / t_window:.3f} frames/s ({t_window / WINDOW * 1e3:.2f} ms/frame, "
+          f"host clock, bus publish to grid, hulls included) on {smi}; dropped "
+          f"{node.dropped_frames}; hull markers from the frames {from_frames}; launches "
+          f"{launches}", flush=True)
+    for index in (1, 2):
+        seg.generate_and_publish_convex_hull(synthetic_labels(), "camera1", index_care_about=index)
+    check_markers(what, markers)
+    return node.grid, color_map, launches
+
+
+def planar_phase(pipeline: FusedFramePipeline, smi: str) -> None:
+    """(d) The planar DEPTH_METHOD with hull markers, two-node, at full width."""
+    state = pipeline.model.state_dict()
+    feed = make_planar_feed(seed=400)
+    what = "planar two-node with hulls"
+    planar_run(what + " warm-up", state, feed, smi)
+    grid, color_map, launches = planar_run(what, state, feed, smi)
+    check_launches(what, launches, k2=0)
+    with K.plain_versions():
+        grid_plain, map_plain, _ = planar_run(what + " (plain)", state, feed, smi)
+    compare_with_plain(what, grid, color_map, grid_plain, map_plain)
+    print(f"  {what}: grid cells with evidence {int((grid > 0).sum())} of {grid.numel()}",
+          flush=True)
+    # the planar update alone: host DLT fit, warp, per-class adds and max
+    engine = SemanticMappingEngine(planar_cfg(), device="cuda")
+    image = torch.from_numpy(np.array(LABEL_COLORS, np.uint8)[
+        np.random.default_rng(5).integers(0, len(LABEL_COLORS), IMAGE_HW)]).cuda()
+    T = np.eye(4)
+    scratch = engine.init_grid()
+    device_ms = cuda_ms(lambda: engine.update_map_planar(scratch, image, T), 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        engine.update_map_planar(scratch, image, T)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"  planar update alone ({IMAGE_HW[0]}x{IMAGE_HW[1]} image onto 5x2000x2000): "
+          f"{device_ms:.3f} ms per call between CUDA events, {host_ms:.3f} ms host clock, "
+          f"on {smi}", flush=True)
+
+
 CLI = REPO / "build" / "chip_smoke_cli"
 XYZI = [rosbag.PointField(f, 4 * i, 7, 1) for i, f in enumerate(("x", "y", "z", "intensity"))]
 
@@ -905,40 +1046,126 @@ def cli_replay(pipeline: FusedFramePipeline, records: list, weights: Path, smi: 
         raise AssertionError(f"resumed replay differs from one replay by {diff}")
 
 
-def cli_rate(weights: Path, smi: str) -> None:
-    """(d) ``pipeline --rate 1`` over phase 4's feed at 12 Hz, both topologies."""
+ONLINE_MAPPING = "  DEPTH_METHOD: points_raw\n  BOUNDARY: [[1300, 1500], [480, 680]]\n"
+
+
+def check_rate_report(what: str, report, launches: dict, fused: bool, smi: str) -> None:
+    """A --rate run over the 8-frame bag: every frame fused or dropped, at
+    least one fused, drops only of frames, no callback errors, K2 launches
+    = frames fused, K4 = frames segmented, K1 1, a finite non-empty grid."""
+    dropped = report.dropped_total + report.dropped_frames
+    segmented = report.fused_frames if fused else sum(
+        n for t, n in report.processed.items() if t.startswith("seg:"))
+    print(f"{what} (8 frames at 12 Hz, cameras alternating) on {smi}: published "
+          f"{report.published}, fused {report.fused_frames}, dropped {dropped} "
+          f"({report.drops or 'no mailbox drops'}, {report.dropped_frames} unsynced), max lag "
+          f"{report.max_lag_s * 1e3:.3f} ms, wall {report.wall_duration_s:.3f} s for a "
+          f"{report.bag_duration_s:.3f} s bag; launches {launches}", flush=True)
+    frame_topics = ("image_raw", "semantic")
+    if (report.fused_frames + dropped != WINDOW or report.fused_frames < 1 or report.errors
+            or any(not t.endswith(frame_topics) for t in report.drops)):
+        raise AssertionError(f"{what}: fused {report.fused_frames}, dropped {dropped}, "
+                             f"drops {report.drops}, errors {report.errors}")
+    check_launches(what, launches, k4=segmented, k2=report.fused_frames)
+    grid = report.grid
+    if not bool(torch.isfinite(grid).all()) or float(grid.sum()) <= 0:
+        raise AssertionError(f"{what}: grid not finite or empty")
+
+
+def cli_rate(weights: Path, smi: str, decode_ahead: bool = False) -> None:
+    """(d) ``pipeline --rate 1`` over phase 4's feed at 12 Hz, both
+    topologies; (e) the same with ``--decode-ahead``."""
     bag = CLI / "online.bag"
-    feed = make_online_feed(seed=200)
-    write_bag(bag, [m for i, f in enumerate(feed) for m in frame_messages(
-        1.0 + i / 12, f["camera"], f["image"], f["cloud"], "velodyne", *f["pose"])])
-    mapping = "  DEPTH_METHOD: points_raw\n  BOUNDARY: [[1300, 1500], [480, 680]]\n"
+    if not bag.exists():
+        feed = make_online_feed(seed=200)
+        write_bag(bag, [m for i, f in enumerate(feed) for m in frame_messages(
+            1.0 + i / 12, f["camera"], f["image"], f["cloud"], "velodyne", *f["pose"])])
+    flag = ["--decode-ahead"] if decode_ahead else []
     # each topology twice: the first run's executor threads pay their
     # first use of the card, the second's are comparable
     for what, extra in (("two-node", []), ("two-node, again", []), ("fused node", ["--fused"]),
                         ("fused node, again", ["--fused"])):
-        name = "rate_" + what.replace(", again", "_again").replace("-", "_").replace(" ", "_")
-        cfg = overlay(name, weights, mapping, extra="TEST_END_TIME: 1000000000000\n")
+        name = ("rate_da_" if decode_ahead else "rate_") + what.replace(", again", "_again") \
+            .replace("-", "_").replace(" ", "_")
+        cfg = overlay(name, weights, ONLINE_MAPPING, extra="TEST_END_TIME: 1000000000000\n")
         K.reset_launch_counts()
-        report = cli_main(["pipeline", "--cfg", cfg, "--bag", str(bag), "--rate", "1.0", *extra])
-        launches = launches_now()
-        dropped = report.dropped_total + report.dropped_frames
-        segmented = report.fused_frames if extra else sum(
-            n for t, n in report.processed.items() if t.startswith("seg:"))
-        print(f"CLI pipeline --rate 1.0 {what} (8 frames at 12 Hz, cameras alternating) on "
-              f"{smi}: published {report.published}, fused {report.fused_frames}, dropped "
-              f"{dropped} ({report.drops or 'no mailbox drops'}, {report.dropped_frames} "
-              f"unsynced), max lag {report.max_lag_s * 1e3:.3f} ms, wall "
-              f"{report.wall_duration_s:.3f} s for a {report.bag_duration_s:.3f} s bag; "
-              f"launches {launches}", flush=True)
-        frame_topics = ("image_raw", "semantic")
-        if (report.fused_frames + dropped != WINDOW or report.fused_frames < 1 or report.errors
-                or any(not t.endswith(frame_topics) for t in report.drops)):
-            raise AssertionError(f"CLI --rate {what}: fused {report.fused_frames}, dropped "
-                                 f"{dropped}, drops {report.drops}, errors {report.errors}")
-        check_launches(f"CLI --rate {what}", launches, k4=segmented, k2=report.fused_frames)
-        grid = report.grid
-        if not bool(torch.isfinite(grid).all()) or float(grid.sum()) <= 0:
-            raise AssertionError(f"CLI --rate {what}: grid not finite or empty")
+        report = cli_main(["pipeline", "--cfg", cfg, "--bag", str(bag), "--rate", "1.0", *flag,
+                           *extra])
+        check_rate_report(f"CLI pipeline --rate 1.0 {' '.join(flag)} {what}".replace("  ", " "),
+                          report, launches_now(), fused=bool(extra), smi=smi)
+
+
+def tf_message(stamp: float, T_velo_from_cam1: np.ndarray):
+    """/tf: velodyne -> base_link (the engine's tuned extrinsic, inverted)
+    and velodyne -> camera1."""
+    from scipy.spatial.transform import Rotation
+
+    from vision_semantic_segmentation_tpu_torch.mapping.engine import velodyne_to_baselink
+
+    def edge(child, T):
+        return rosbag.TransformStampedMsg(rosbag.Header(0, stamp, "velodyne"), child,
+                                          np.float64(T[:3, 3]),
+                                          Rotation.from_matrix(T[:3, :3]).as_quat())
+
+    return rosbag.TFMessageMsg([edge("base_link", np.linalg.inv(velodyne_to_baselink())),
+                                edge("camera1", T_velo_from_cam1)])
+
+
+def registered_camera1(msg):
+    """The camera1 that MappingNode registers from ``msg`` alone (its own code path)."""
+    from vision_semantic_segmentation_tpu_torch.geometry.camera import (
+        camera_from_extrinsic, get_camera)
+    from vision_semantic_segmentation_tpu_torch.mapping.engine import velodyne_to_baselink
+    from vision_semantic_segmentation_tpu_torch.utils.ros_compat import TransformTree
+
+    tree = TransformTree()
+    for tr in msg.transforms:
+        tree.set_pose(tr.translation, tr.rotation, parent=tr.header.frame_id,
+                      child=tr.child_frame_id)
+    T_cam_to_velo = np.linalg.inv(velodyne_to_baselink()) @ tree.lookup("base_link", "camera1")
+    return camera_from_extrinsic(get_camera("camera1"), T_cam_to_velo)
+
+
+def decode_ahead_tf(pipeline: FusedFramePipeline, smi: str) -> None:
+    """(e) The online bag with camera1's extrinsics on /tf at 0.5 s (the
+    built-in calibration) and moved 3 degrees at 1.3 s, 0.3 s after
+    camera1's first frame (1.0 s) and inside the decode-ahead window:
+    ``run_online(fused=True, decode_ahead=True)`` registers the extrinsics
+    in force at 1.0 s."""
+    from scipy.spatial.transform import Rotation
+
+    from vision_semantic_segmentation_tpu_torch.geometry.camera import camera_setup_1
+    from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
+
+    T_a = np.linalg.inv(camera_setup_1().T)  # camera1 -> velodyne
+    T_b = T_a.copy()
+    T_b[:3, :3] = Rotation.from_euler("z", 3, degrees=True).as_matrix() @ T_a[:3, :3]
+    tf_a, tf_b = tf_message(0.5, T_a), tf_message(1.3, T_b)
+    records = [("/tf", tf_a, 0.5)]
+    for i, f in enumerate(make_online_feed(seed=200)):
+        stamp = 1.0 + i / 12
+        if stamp > 1.3 >= records[-1][2]:
+            records.append(("/tf", tf_b, 1.3))
+        records += [(t, m, stamp) for t, m in frame_messages(
+            stamp, f["camera"], f["image"], f["cloud"], "velodyne", *f["pose"])]
+    bag = CLI / "online_moved_tf.bag"
+    rosbag.write_bag(str(bag), records)
+    cfg = online_cfg()
+    cfg.OUTPUT_DIR = str(CLI / "out" / "moved_tf")
+    fused = FusedFramePipeline(cfg, state_dict=pipeline.model.state_dict(),
+                               compute_dtype=torch.bfloat16, distortion="points", device="cuda")
+    K.reset_launch_counts()
+    report = run_online(cfg, str(bag), rate=1.0, fused=True, pipeline=fused, decode_ahead=True)
+    what = "run_online --decode-ahead, fused, camera1 moved on /tf at 1.3 s"
+    check_rate_report(what, report, launches_now(), fused=True, smi=smi)
+    got = fused.engine.cameras["camera1"]
+    want, later = registered_camera1(tf_a), registered_camera1(tf_b)
+    err_a = float(np.abs(got.R - want.R).max())
+    err_b = float(np.abs(got.R - later.R).max())
+    print(f"  {what}: registered camera1 R against the 0.5 s transform max |diff| {err_a:.3e}, "
+          f"against the 1.3 s one {err_b:.3e}", flush=True)
+    if err_a > 1e-9 or err_b < 1e-3:
+        raise AssertionError(f"{what}: camera1 took the wrong extrinsics ({err_a}, {err_b})")
 
 
 def cli_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
@@ -962,6 +1189,8 @@ def cli_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
     cli_export(records)
     cli_replay(pipeline, records, weights, smi)
     cli_rate(weights, smi)
+    cli_rate(weights, smi, decode_ahead=True)
+    decode_ahead_tf(pipeline, smi)
 
 
 def cli_host_steps(pipeline: FusedFramePipeline, smi: str) -> None:
@@ -1119,6 +1348,7 @@ def main() -> None:
     print_variants(table)
     pipeline, frames = main_path(entries, smi)
     online_phase(pipeline, frames, smi)
+    planar_phase(pipeline, smi)
     cli_phase(pipeline, frames, smi)
 
     args = [frames[k][1] for k in ("image", "pcd", "valid", "position", "quaternion")]
@@ -1130,6 +1360,25 @@ def main() -> None:
     publish_feed(bus, feed[:2])  # both cameras once
     where_time_goes("one online frame (FusedOnlineNode, frame and cloud from the host)",
                     lambda: publish_feed(bus, feed[2:]))
+    bus = TopicBus()
+    cfg = planar_cfg()
+    predictor = SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK,
+                                     state_dict=pipeline.model.state_dict(),
+                                     compute_dtype=torch.bfloat16, device="cuda")
+    SegmentationNode(cfg, bus, predictor=predictor, publish_hulls=True)
+    MappingNode(cfg, bus, device="cuda")
+    bus.publish("/estimated_plane", list(PLANE), stamp=0.5)
+    feed = make_planar_feed(seed=500)[:3]
+
+    def planar_frames(frames):
+        for f in frames:
+            bus.publish("/current_pose", f["pose"], stamp=f["stamp"])
+            bus.publish(f"/{f['camera']}/image_raw", f["image"], stamp=f["stamp"],
+                        frame_id=f["camera"])
+
+    planar_frames(feed[:2])  # both cameras once
+    where_time_goes("one planar two-node frame with hulls (frame from the host)",
+                    lambda: planar_frames(feed[2:]))
     cli_host_steps(pipeline, smi)
     weights = CLI / "weights.pth"
     where_time_goes("CLI pipeline --fused over the .bag (the whole call)", lambda: cli_main([

@@ -1,12 +1,17 @@
 """Port parity: the online runtime (executors, timed bag playback) against the JAX package.
 
 ``NodeExecutor`` mailboxes and threads, and ``run_online`` over a small bag
-for the two-node topology and ``FusedOnlineNode``, in the port and in the
-JAX package on the CPU, with the same weights (a Dummy network, as the JAX
+for the two-node topology and ``FusedOnlineNode``, fed by ``play_bag_timed``
+and by the decode-ahead ``play_stream_timed``, in the port and in the JAX
+package on the CPU, with the same weights (a Dummy network, as the JAX
 package's own online tests use; rectified 1440x1920 frames scaled 32x
 before it).  On the CPU every kernel wrapper runs its plain version.
 Tolerance: grids atol 1e-4 (the nodes' image paths and the fold's sum order
-differ, as in ``tests/test_torch_online.py``); counts exactly.
+differ, as in ``tests/test_torch_online.py``); counts exactly.  On a bag
+whose ``/tf`` moves camera1 inside the decode-ahead window, the port's two
+feeds give the same grid and the JAX package's decode-ahead feed another:
+it applies the transform before the frame it follows (the deviation the
+port repairs).
 """
 import sys
 import threading
@@ -17,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.spatial.transform import Rotation
 
 import vision_semantic_segmentation_tpu.runtime.bus as j_bus_mod
 import vision_semantic_segmentation_tpu.runtime.node as j_node_mod
@@ -225,6 +231,160 @@ def test_run_online_fuses_every_frame_and_matches(online, fused, monkeypatch):
     np.testing.assert_allclose(report.grid.numpy(), j_grid, atol=1e-4, rtol=0)
 
 
-def test_decode_ahead_is_refused(online):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7.2"):
-        run_online(online["cfgs"]["port"], online["bag"], decode_ahead=True, device="cpu")
+# -- the decode-ahead feed ------------------------------------------------------
+@pytest.mark.parametrize("fused", [False, True], ids=["two_node", "fused_node"])
+def test_decode_ahead_matches_timed_playback(online, fused, monkeypatch):
+    """``run_online(decode_ahead=True)`` on a bag whose extrinsics do not
+    move: the same grid and counts as the port's ``play_bag_timed`` feed and
+    as the JAX package's decode-ahead feed."""
+    cfg = online["cfgs"]["port"]
+    reports = {}
+    for decode_ahead in (True, False):
+        reports[decode_ahead] = run_online(cfg, online["bag"], rate=2.0, fused=fused,
+                                           decode_ahead=decode_ahead, device="cpu",
+                                           **_port_parts(online, fused))
+    ours = reports[True]
+    assert ours.fused_frames == N_FRAMES and ours.dropped_frames == 0
+    assert ours.dropped_total == 0 and not ours.errors and ours.max_lag_s < 0.5
+    assert ours.published == reports[False].published == 3 * N_FRAMES
+    assert ours.processed == reports[False].processed
+    torch.testing.assert_close(ours.grid, reports[False].grid, rtol=0, atol=1e-4)
+
+    j_nodes = _recording(monkeypatch, j_node_mod, "FusedOnlineNode" if fused else "MappingNode")
+    j_report = j_run_online(online["cfgs"]["jax"], online["bag"], rate=2.0, fused=fused,
+                            decode_ahead=True, **_warm_jax(online, fused))
+    assert j_report.dropped_total == 0 and j_nodes[0].fused_frames == N_FRAMES
+    assert j_report.published == ours.published
+    np.testing.assert_allclose(ours.grid.numpy(), np.asarray(j_nodes[0].grid), atol=1e-4,
+                               rtol=0)
+
+
+def _port_parts(online, fused):
+    """A fresh f32 pipeline (fused) or predictor (two-node) on the CPU."""
+    cfg = online["cfgs"]["port"]
+    if fused:
+        return dict(pipeline=FusedFramePipeline(
+            cfg, state_dict=flax_to_state_dict(online["variables"]), distortion="none",
+            compute_dtype=torch.float32, device="cpu"))
+    return dict(predictor=SemanticSegmentation(
+        cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, variables=online["variables"],
+        compute_dtype="float32", device="cpu"))
+
+
+def _tf_message(stamp, camera1_quaternion):
+    """velodyne -> base_link and velodyne -> camera1 (a forward-looking camera)."""
+    return rosbag.TFMessageMsg([
+        rosbag.TransformStampedMsg(rosbag.Header(0, stamp, "velodyne"), "base_link",
+                                   np.array([-2.64, 0.0, -1.98]), np.array([0, 0, 0, 1.0])),
+        rosbag.TransformStampedMsg(rosbag.Header(0, stamp, "velodyne"), "camera1",
+                                   np.array([0.05, 0.3, -0.06]), camera1_quaternion),
+    ])
+
+
+CAMERA1_A = np.array([-0.5, 0.49, -0.5, 0.51])
+# the same camera turned 3 degrees about the vehicle's vertical axis
+CAMERA1_B = (Rotation.from_euler("z", 3, degrees=True) * Rotation.from_quat(CAMERA1_A)).as_quat()
+
+
+@pytest.fixture(scope="module")
+def moved_bag(online, tmp_path_factory):
+    """The online bag with camera1's extrinsics on ``/tf`` at 0.5 s (A),
+    moved 0.29 s after camera1's first frame (B, at 1.3 s): inside the
+    decode-ahead window of that frame (0.5 s), so a feed that applies /tf
+    as it reads it gives the frame B."""
+    root = tmp_path_factory.mktemp("moved")
+    msgs = list(rosbag.RosbagReader(online["bag"]).read_messages())
+    records = [("/tf", _tf_message(0.5, CAMERA1_A), 0.5)]
+    for m in msgs:
+        if m.stamp > 1.3 >= records[-1][2]:
+            records.append(("/tf", _tf_message(1.3, CAMERA1_B), 1.3))
+        records.append((m.topic, m.message, m.stamp))
+    bag = str(root / "moved.bag")
+    rosbag.write_bag(bag, records)
+    return bag
+
+
+def _camera1_from(quaternion):
+    from vision_semantic_segmentation_tpu_torch.geometry.camera import (
+        camera_from_extrinsic, get_camera)
+    from vision_semantic_segmentation_tpu_torch.mapping.engine import velodyne_to_baselink
+    from vision_semantic_segmentation_tpu_torch.utils.ros_compat import TransformTree
+
+    tree = TransformTree()
+    for tr in _tf_message(0.0, quaternion).transforms:
+        tree.set_pose(tr.translation, tr.rotation, parent=tr.header.frame_id,
+                      child=tr.child_frame_id)
+    T_cam_to_velo = np.linalg.inv(velodyne_to_baselink()) @ tree.lookup("base_link", "camera1")
+    return camera_from_extrinsic(get_camera("camera1"), T_cam_to_velo)
+
+
+def test_decode_ahead_applies_tf_on_the_timeline(online, moved_bag, monkeypatch):
+    """The moved-extrinsic bag, fused topology: the port registers for
+    camera1 the extrinsics in force at its first frame's stamp (A), under
+    both feeds, and the two grids are equal.  The JAX package's decode-ahead
+    feed applies the 1.3 s transform before that frame and registers B: its
+    grid differs.  That difference is the deviation the port repairs."""
+    cfg = online["cfgs"]["port"]
+    want_a, want_b = _camera1_from(CAMERA1_A), _camera1_from(CAMERA1_B)
+    grids = {}
+    for decode_ahead in (True, False):
+        parts = _port_parts(online, fused=True)
+        report = run_online(cfg, moved_bag, rate=2.0, fused=True, decode_ahead=decode_ahead,
+                            device="cpu", **parts)
+        assert report.fused_frames == N_FRAMES and report.dropped_total == 0
+        assert report.published == 3 * N_FRAMES + 2 and not report.errors
+        np.testing.assert_allclose(parts["pipeline"].engine.cameras["camera1"].R, want_a.R,
+                                   atol=1e-12)
+        grids[decode_ahead] = report.grid
+    torch.testing.assert_close(grids[True], grids[False], rtol=0, atol=1e-4)
+
+    j_nodes = _recording(monkeypatch, j_node_mod, "FusedOnlineNode")
+    j_variables = online["variables"]
+    j_run_online(online["cfgs"]["jax"], moved_bag, rate=2.0, fused=True, decode_ahead=True,
+                 pipeline=JaxPipeline(online["cfgs"]["jax"], j_variables, distortion="none",
+                                      compute_dtype=jnp.float32))
+    j_cam = j_nodes[0].engine.cameras["camera1"]
+    np.testing.assert_allclose(j_cam.R, want_b.R, atol=1e-6)
+    assert not np.allclose(want_a.R, want_b.R, atol=1e-3)
+    assert not np.allclose(np.asarray(j_nodes[0].grid), grids[True].numpy(), atol=1e-4)
+
+
+def _published(feed, bag, **kw):
+    """(topic, stamp) of everything a feed publishes, in order."""
+    bus = TopicBus()
+    seen = []
+    for topic in ("/tf", "/reduced_map", "/current_pose", "/camera1/image_raw",
+                  "/camera6/image_raw"):
+        bus.subscribe(topic, lambda m, t=topic: seen.append((t, round(m.stamp, 6))))
+    feed(bag, bus, rate=50.0, **kw)
+    return seen
+
+
+def test_play_stream_timed_holds_tf_until_its_stamp(moved_bag):
+    """Each ``/tf`` comes out after every frame stamped before it and before
+    every frame stamped after it, as under ``play_bag_timed``; each cloud once,
+    at its own stamp (each pose goes out at its frame's stamp, after the
+    sync); the JAX feed publishes the 1.3 s transform before the 1.01 s
+    frame."""
+    from vision_semantic_segmentation_tpu.runtime.async_bus import (
+        play_stream_timed as j_play_stream_timed)
+    from vision_semantic_segmentation_tpu.utils.ros_compat import TransformTree as JaxTree
+    from vision_semantic_segmentation_tpu_torch.runtime.async_bus import (
+        play_bag_timed, play_stream_timed)
+
+    cams = ["/camera1/image_raw", "/camera6/image_raw"]
+    ours = _published(play_stream_timed, moved_bag, image_topics=cams, with_tf=True)
+    timed = _published(play_bag_timed, moved_bag)
+    assert len(ours) == len(timed) == 3 * N_FRAMES + 2
+
+    def frames_and_tf(seen):
+        return [m for m in seen if m[0] not in ("/reduced_map", "/current_pose")]
+
+    assert frames_and_tf(ours) == frames_and_tf(timed)
+    clouds = [m for m in ours if m[0] == "/reduced_map"]
+    assert clouds == [m for m in timed if m[0] == "/reduced_map"]
+    tf_at = ours.index(("/tf", 1.3))
+    assert ours[tf_at - 1] == ("/camera1/image_raw", 1.01)
+    j_ours = _published(j_play_stream_timed, moved_bag, image_topics=cams,
+                        tf_tree=JaxTree())
+    assert j_ours.index(("/tf", 1.3)) < j_ours.index(("/camera1/image_raw", 1.01))

@@ -9,13 +9,19 @@ loads through ``models/convert.py``).  Raw frames are 1440x1920 and scaled
 the CPU every kernel wrapper runs its plain version.
 
 Tolerances: grids atol 1e-4, as ``tests/test_torch_online.py`` (the nodes'
-image paths and the fold's sum order differ); maps read back from disk
-through one reader (cv2), equal on all but 1e-3 of cells (the JAX package
-renders through its reference smooth on the CPU, the port through K1's
-plain version); exported frames and scores exactly.
+image paths and the fold's sum order differ); the planar two-node grid
+equal but for at most 1e-4 of the cells, each off by one count, as in
+``tests/test_torch_planar.py`` (the JAX node builds the pose's matrix in
+f32, the port in f64); maps read back from disk through one reader (cv2),
+equal on all but 1e-3 of cells (the JAX package renders through its
+reference smooth on the CPU, the port through K1's plain version);
+exported frames and scores exactly.  Every fused path runs its network in
+the fused pipeline's bf16 in both packages whatever ``MODEL.COMPUTE_DTYPE``
+says; the parity checks patch both packages' pipelines to f32.
 """
 import functools
 import glob
+import inspect
 
 import cv2
 import jax
@@ -23,8 +29,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch
+from scipy.spatial.transform import Rotation
+
 import vision_semantic_segmentation_tpu.runtime.node as j_node_mod
 import vision_semantic_segmentation_tpu.runtime.pipeline as j_pipeline_mod
+import vision_semantic_segmentation_tpu_torch.runtime.node as node_mod
+import vision_semantic_segmentation_tpu_torch.runtime.pipeline as pipeline_mod
 from vision_semantic_segmentation_tpu.__main__ import main as j_main
 from vision_semantic_segmentation_tpu.config import get_cfg_defaults as j_cfg_defaults
 from vision_semantic_segmentation_tpu.evaluation.map_eval import MapEvaluator as JaxEvaluator
@@ -55,10 +66,13 @@ def run(tmp_path_factory):
     """Weights, YAMLs per package (outputs apart; ``<name>`` for rectified
     frames, ``<name>_raw`` with ``VISION_SEM_SEG.UNDISTORT`` on, which the
     fused path handles on the points and the two-node path would undistort
-    each frame for), and the recordings:
+    each frame for, ``<name>_planar`` in the planar ``DEPTH_METHOD`` over an
+    ego-local 40x40 m grid), and the recordings:
     ``seq.npz`` (cameras alternating), ``one_camera.npz`` and its ``.bag``
-    (camera1, 12 Hz), and ``tf.bag`` whose ``/tf`` gives camera1 other
-    extrinsics than the built-in ones."""
+    (camera1, 12 Hz), ``tf.bag`` whose ``/tf`` gives camera1 other
+    extrinsics than the built-in ones, ``planar.npz`` (cameras alternating,
+    the vehicle moving and turning near the origin) and ``slow.bag`` (the
+    ``seq.npz`` frames, 1 s apart)."""
     root = tmp_path_factory.mktemp("cli")
     rng = np.random.default_rng(41)
     jcfg = _cfg(j_cfg_defaults, root / "out" / "jax")
@@ -80,6 +94,12 @@ def run(tmp_path_factory):
             yamls[key] = str(root / f"{key}.yaml")
             with open(yamls[key], "w") as f:
                 f.write(cfg.dump())
+        cfg.MAPPING.DEPTH_METHOD = "planar"
+        cfg.MAPPING.BOUNDARY = [[0, 40], [-20, 20]]
+        cfg.MAPPING.RESOLUTION = 0.2
+        yamls[f"{name}_planar"] = str(root / f"{name}_planar.yaml")
+        with open(yamls[f"{name}_planar"], "w") as f:
+            f.write(cfg.dump())
 
     frames = _frames(rng)
 
@@ -89,7 +109,11 @@ def run(tmp_path_factory):
                             quaternion=frames["quaternion"][i], camera=cameras[i % len(cameras)],
                             stamp=1.0 + i * dt) for i in range(N_FRAMES)]
 
-    save_frames(records(CAMERAS, 1.0), str(root / "seq.npz"))
+    seq = records(CAMERAS, 1.0)
+    save_frames(seq, str(root / "seq.npz"))
+    save_frames([FrameRecord(**{**f.__dict__, "position": np.array([1.0 * i, 0.5 * i, 0.0]),
+                                "quaternion": Rotation.from_euler("z", 0.2 * i).as_quat()})
+                 for i, f in enumerate(seq)], str(root / "planar.npz"))
     one = records(("camera1",), 1 / 12)
     save_frames(one, str(root / "one_camera.npz"))
     msgs = []
@@ -101,6 +125,16 @@ def run(tmp_path_factory):
         msgs.append(("/camera1/image_raw", rosbag.ImageMsg(
             rosbag.Header(0, f.stamp, "camera1"), 1440, 1920, "rgb8", f.semantic_image), f.stamp))
     rosbag.write_bag(str(root / "one_camera.bag"), msgs)
+    slow = []
+    for f in seq:  # images 10 ms after their clouds: see tests/test_torch_async.py
+        slow.append(("/reduced_map", _cloud_msg(f.stamp, "world", f.pcd), f.stamp))
+        slow.append(("/current_pose", rosbag.PoseStampedMsg(
+            rosbag.Header(0, f.stamp, "world"), f.position.astype(np.float64),
+            f.quaternion.astype(np.float64)), f.stamp))
+        slow.append((f"/{f.camera}/image_raw", rosbag.ImageMsg(
+            rosbag.Header(0, f.stamp + 0.01, f.camera), 1440, 1920, "rgb8", f.semantic_image),
+            f.stamp + 0.01))
+    rosbag.write_bag(str(root / "slow.bag"), slow)
     # camera1 -> base_link: the built-in calibration turned 2 degrees in yaw
     tf = rosbag.TFMessageMsg([
         rosbag.TransformStampedMsg(rosbag.Header(0, 0.5, "/velodyne"), "/base_link",
@@ -188,12 +222,102 @@ def test_pipeline_two_node(run, bag, monkeypatch):
         assert not np.allclose(plain.grid.numpy(), node.grid.numpy())
 
 
+def test_pipeline_two_node_planar(run, monkeypatch):
+    """The two-node dataflow over ``.npz`` with a planar ``DEPTH_METHOD``: no
+    cloud topic, the semantic images warped onto the ground plane."""
+    _fresh_outputs(run)
+    bag = str(run["root"] / "planar.npz")
+    node = main(["pipeline", "--cfg", run["yamls"]["port_planar"], "--bag", bag,
+                 "--device", "cpu"])
+    j_nodes = []
+
+    class Recording(JaxMappingNode):
+        def finalize(self):
+            j_nodes.append(self)
+            return super().finalize()
+
+    monkeypatch.setattr(j_node_mod, "MappingNode", Recording)
+    j_main(["pipeline", "--cfg", run["yamls"]["jax_planar"], "--bag", bag])
+    assert node.pcd_topic is None and node.depth_method == "planar"
+    # the planar branch counts no fused frame, in either package
+    assert node.fused_frames == j_nodes[0].fused_frames == 0 and node.dropped_frames == 0
+    diff = np.abs(node.grid.numpy() - np.asarray(j_nodes[0].grid))
+    assert diff.max() <= 1.0 and (diff > 0).mean() <= 1e-4
+    assert (node.grid > 0).sum() > 500
+    ours = _png(run, "port", "global_map.png")
+    np.testing.assert_array_equal(ours, node.finalized_map)
+    _assert_maps_match(ours, _png(run, "jax", "global_map.png"))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["two_node", "fused_node"])
+def test_pipeline_decode_ahead(run, fused):
+    """``pipeline --rate 2 --decode-ahead``: every frame fused, none dropped,
+    and the grid of the same command without ``--decode-ahead``."""
+    reports = [main(["pipeline", "--cfg", run["yamls"]["port"], "--bag",
+                     str(run["root"] / "slow.bag"), "--rate", "2", "--device", "cpu",
+                     *(["--fused"] if fused else []), *extra])
+               for extra in (["--decode-ahead"], [])]
+    for report in reports:
+        assert report.fused_frames == N_FRAMES and report.dropped_total == 0
+        assert report.dropped_frames == 0 and not report.errors
+        assert report.published == 3 * N_FRAMES
+    torch.testing.assert_close(reports[0].grid, reports[1].grid, rtol=0, atol=1e-4)
+    assert (reports[0].grid != 0).sum() > 100
+
+
+class _Built(Exception):
+    """Raised by a recording pipeline class once it has what the test needs."""
+
+
+def _record_dtype(monkeypatch, module, seen, name="FusedFramePipeline"):
+    """Replace ``module.name`` by a constructor that records the compute
+    dtype it was called with (its default when not given) and stops."""
+    real = getattr(module, name)
+    signature = inspect.signature(real)
+
+    def recording(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        seen.append(bound.arguments["compute_dtype"])
+        raise _Built
+
+    monkeypatch.setattr(module, name, recording)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_paths_run_bf16_whatever_the_config(run, dtype, monkeypatch, tmp_path):
+    """Every fused entry point builds its pipeline at the pipeline's bf16,
+    whatever ``MODEL.COMPUTE_DTYPE`` says, in both packages: ``pipeline
+    --fused``, and in the port ``--rate --fused`` with either feed."""
+    yamls = {}
+    for name in ("port", "jax"):
+        text = open(run["yamls"][name]).read()
+        assert "COMPUTE_DTYPE: float32" in text
+        yamls[name] = str(tmp_path / f"{name}.yaml")
+        with open(yamls[name], "w") as f:
+            f.write(text.replace("COMPUTE_DTYPE: float32", f"COMPUTE_DTYPE: {dtype}"))
+    seen, j_seen = [], []
+    _record_dtype(monkeypatch, pipeline_mod, seen)
+    _record_dtype(monkeypatch, node_mod, seen)
+    _record_dtype(monkeypatch, j_pipeline_mod, j_seen)
+    bag = str(run["root"] / "one_camera.bag")
+    for extra in ([], ["--rate", "1"], ["--rate", "1", "--decode-ahead"]):
+        with pytest.raises(_Built):
+            main(["pipeline", "--cfg", yamls["port"], "--bag", bag, "--fused", "--device",
+                  "cpu", *extra])
+    with pytest.raises(_Built):
+        j_main(["pipeline", "--cfg", yamls["jax"], "--bag", bag, "--fused"])
+    assert seen == [torch.bfloat16] * 3 and j_seen == [jnp.bfloat16]
+
+
 @pytest.mark.parametrize("bag", ["one_camera.npz", "one_camera.bag"])
 def test_pipeline_fused(run, bag, monkeypatch):
     """``--fused``: windows of up to 8 frames through the fused pipeline,
-    raw frames with the distortion on the points (the JAX CLI's pipeline
-    set to f32 like the port's, which follows ``MODEL.COMPUTE_DTYPE``)."""
+    raw frames with the distortion on the points (both packages' pipelines
+    set to f32 for the comparison; both CLIs run bf16 otherwise)."""
     _fresh_outputs(run)
+    monkeypatch.setattr(pipeline_mod, "FusedFramePipeline", functools.partial(
+        pipeline_mod.FusedFramePipeline, compute_dtype=torch.float32))
     result = main(["pipeline", "--cfg", run["yamls"]["port_raw"], "--bag",
                    str(run["root"] / bag), "--fused", "--device", "cpu"])
     monkeypatch.setattr(j_pipeline_mod, "FusedFramePipeline", functools.partial(

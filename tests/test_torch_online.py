@@ -64,9 +64,6 @@ from vision_semantic_segmentation_tpu_torch.runtime import (
     nearest_stamp_index,
 )
 
-from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
-from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
-
 from test_torch_models import _randomize_bn
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
@@ -396,11 +393,6 @@ def test_nearest_stamp_index_matches():
         assert nearest_stamp_index(stamps, target) == j_nearest(stamps, target)
 
 
-def _planar(cfg, bus):
-    cfg.MAPPING.DEPTH_METHOD = "planar"
-    MappingNode(cfg, bus, device="cpu")
-
-
 def _qpack(cfg, bus):
     cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.QPACK = "int8.npz"
     SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
@@ -411,21 +403,7 @@ def _spatial(cfg, bus):
     SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
 
 
-def _decode_ahead_executor(cfg, bus):
-    run_online(cfg, "drive.bag", decode_ahead=True, device="cpu")
-
-
-def _decode_ahead_cli(cfg, bus):
-    """The decode-ahead feed, which applies /tf ahead of its frames."""
-    cli_main(["pipeline", "--bag", "drive.bag", "--rate", "1", "--decode-ahead",
-              "--device", "cpu"])
-
-
-@pytest.mark.parametrize("make", [
-    lambda cfg, bus: SegmentationNode(cfg, bus, publish_hulls=True, device="cpu"),
-    _decode_ahead_executor, _decode_ahead_cli,
-    _planar, _qpack, _spatial,
-], ids=["hulls", "executor", "tf_tree", "planar", "qpack", "spatial_shards"])
+@pytest.mark.parametrize("make", [_qpack, _spatial], ids=["qpack", "spatial_shards"])
 def test_unported_options_refused(make, tmp_path):
     cfg = get_cfg_defaults()
     cfg.OUTPUT_DIR = str(tmp_path)

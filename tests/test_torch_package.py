@@ -54,6 +54,30 @@ def test_no_jax_imports():
     assert result["bad"] == []
 
 
+_NO_CV2_PROBE = """
+import importlib, pkgutil, sys
+import numpy as np, torch
+import vision_semantic_segmentation_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+from vision_semantic_segmentation_tpu_torch.geometry import warp_perspective
+from vision_semantic_segmentation_tpu_torch.inference import generate_convex_hull
+labels = np.zeros((40, 50), np.int32)
+labels[10:30, 10:40] = 1
+assert len(generate_convex_hull(labels)) == 1
+warp_perspective(torch.zeros((8, 8, 3), dtype=torch.uint8), np.eye(3), (8, 8), mode="nearest")
+print(sorted(m for m in sys.modules if m.split(".")[0] == "cv2"))
+"""
+
+
+def test_hulls_and_warp_need_no_opencv():
+    """The GPU machine has no OpenCV: no port module imports it, and the
+    hull extraction and the planar warp run without it."""
+    out = subprocess.run([sys.executable, "-c", _NO_CV2_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_no_jax_in_chip_smoke():
     probe = (
         "import runpy, sys; runpy.run_path('chip_smoke.py', run_name='not_main'); "

@@ -212,5 +212,5 @@ def test_parallel_replay_refused(option, tmp_path):
     cfg = _cfg(get_cfg_defaults, tmp_path, "port")
     if option == "grid_shards":
         cfg.MAPPING.GRID_SHARDS = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         MappingReplay(cfg, frame_parallel=option == "frame_parallel", device="cpu")

@@ -7,17 +7,21 @@ flags:
     python -m vision_semantic_segmentation_tpu_torch replay   --cfg exp.yaml [--input-dir d]
                                                               [--resume-grid g] [--save-grid g]
     python -m vision_semantic_segmentation_tpu_torch pipeline --cfg exp.yaml --bag seq.{npz,hkl,pkl,bag}
-                                                              [--fused [--confidence]] [--rate R]
+                                                              [--fused [--confidence]]
+                                                              [--rate R [--decode-ahead]]
     python -m vision_semantic_segmentation_tpu_torch export   input.{hkl,pkl,bag} [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch eval     --maps dir --gt dir
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
 On the card, replay runs K2 per frame and K1 per map; ``pipeline`` adds K4
-per segmented frame.  The network runs in ``MODEL.COMPUTE_DTYPE`` (bf16 by
-default).  Not ported yet (ROADMAP queue 1): ``train``, ``convert``,
-``compile``, ``quantize``, ``autotune``, ``profile`` and ``video``,
-``replay --frame-parallel`` and ``pipeline --decode-ahead``.
+per segmented frame (a planar ``MAPPING.DEPTH_METHOD`` runs no K2).  The
+two-node dataflow runs the network in ``MODEL.COMPUTE_DTYPE`` (bf16 by
+default); every fused path (``--fused``, with or without ``--rate``) runs
+it in the fused pipeline's bf16, as the JAX package does.  Not ported yet:
+``convert``, ``video`` and ``profile`` (ROADMAP queue 1 item 3), ``train``
+(item 4), ``compile``, ``quantize`` and ``autotune`` (item 5), and
+``replay --frame-parallel`` (item 6).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -76,7 +80,8 @@ def cmd_pipeline(args):
     ``--fused`` runs the fused frame pipeline over windows of 8 frames
     instead of the two-node dataflow; ``--rate`` plays a ``.bag`` on its own
     timeline through nodes on executor threads, overload surfacing as
-    dropped frames (with ``--fused``: one FusedOnlineNode).
+    dropped frames (with ``--fused``: one FusedOnlineNode; with
+    ``--decode-ahead``: the bag decoded on a worker thread).
     """
     from .mapping.engine import SemanticMappingEngine
     from .runtime.bus import TopicBus
@@ -84,10 +89,6 @@ def cmd_pipeline(args):
     from .utils.ros_compat import TransformTree
 
     cfg = _load_app_cfg(args.cfg)
-    if args.decode_ahead:
-        from .runtime.async_bus import DECODE_AHEAD_REFUSED
-
-        raise NotImplementedError(DECODE_AHEAD_REFUSED)
     if args.fused and not args.rate:
         return _fused_pipeline(cfg, args.bag, confidence=args.confidence, device=args.device)
     if args.rate:
@@ -98,7 +99,7 @@ def cmd_pipeline(args):
         from .runtime.async_bus import run_online
 
         report = run_online(cfg, args.bag, rate=float(args.rate), fused=args.fused,
-                            device=args.device)
+                            decode_ahead=args.decode_ahead, device=args.device)
         print(f"online replay @ {report.rate}x: {report.published} msgs in "
               f"{report.wall_duration_s:.1f}s (bag {report.bag_duration_s:.1f}s), "
               f"fused {report.fused_frames}, dropped {report.dropped_total} "
@@ -117,9 +118,11 @@ def cmd_pipeline(args):
         play_bag(args.bag, bus)
     else:
         frames = _read_frames(args.bag)
-        # clouds go on the topic MAPPING.DEPTH_METHOD selects
+        # clouds go on the topic MAPPING.DEPTH_METHOD selects (a planar
+        # node subscribes none)
+        pcd_topic = node.pcd_topic or "/reduced_map"
         for f in frames:
-            bus.publish(node.pcd_topic, f.pcd, stamp=f.stamp, frame_id=f.pcd_frame_id)
+            bus.publish(pcd_topic, f.pcd, stamp=f.stamp, frame_id=f.pcd_frame_id)
             bus.publish("/current_pose", (f.position, f.quaternion), stamp=f.stamp)
             bus.publish(f"/{f.camera}/image_raw", f.semantic_image, stamp=f.stamp,
                         frame_id=f.camera)
@@ -148,9 +151,10 @@ def _fused_pipeline(cfg, bag_path: str, confidence: bool = False, device="cuda")
     ``VISION_SEM_SEG.UNDISTORT``: True means raw camera frames, handled on
     the projected points; False means rectified frames and a pinhole
     projection.  ``confidence`` weights each point's evidence by the
-    network's softmax confidence at its pixel.
+    network's softmax confidence at its pixel.  The network runs in the
+    pipeline's bf16, whatever ``MODEL.COMPUTE_DTYPE`` says, as in the JAX
+    package's CLI.
     """
-    from .inference.predictor import _DTYPES
     from .mapping.engine import SemanticMappingEngine
     from .models.convert import load_weights
     from .runtime.pipeline import FusedFramePipeline
@@ -163,7 +167,6 @@ def _fused_pipeline(cfg, bag_path: str, confidence: bool = False, device="cuda")
     undistort = bool(cfg.VISION_SEM_SEG.get("UNDISTORT", True))
     pipeline = FusedFramePipeline(
         cfg, load_weights(net_cfg.MODEL.WEIGHT), engine=engine,
-        compute_dtype=_DTYPES[net_cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")],
         distortion="points" if undistort else "none",
         confidence_weighting=confidence, device=device)
     replay = MappingReplay(cfg, engine=engine)
@@ -246,7 +249,9 @@ def main(argv=None):
                    help="with --fused: weight each point's evidence by the network's softmax "
                         "confidence at its pixel")
     p.add_argument("--decode-ahead", action="store_true", dest="decode_ahead",
-                   help="not ported yet (raises)")
+                   help="with --rate: decode the bag (JPEG, PointCloud2) on a worker thread "
+                        "overlapping node compute instead of on the pacing thread (the "
+                        "production feed for compressed bags on a small host)")
     p.set_defaults(fn=cmd_pipeline)
 
     p = sub.add_parser("eval", help="score generated maps against ground truth")

@@ -1,12 +1,12 @@
 """Projective camera model.
 
-Port of ``vision_semantic_segmentation_tpu/geometry/camera.py`` (the parts
-the mapping and online paths use): a frozen calibration container with
-host-numpy P, K and P_norm, the plumb-bob forward model on tensors, and the
-host-side inverse map for image undistortion.  The two vehicle cameras'
-calibrations (ref camera.py:102-135) are the same numbers, and
-``camera_from_extrinsic`` rebuilds one from TF extrinsics.  Ray casting
-(``pixel_to_ray``, for the hull markers) is not ported yet.
+Port of ``vision_semantic_segmentation_tpu/geometry/camera.py``: a frozen
+calibration container with host-numpy P, P_norm, T, K_inv and C_world;
+projection and ray casting on tensors (f32 for the hull markers, as in the
+JAX package); the plumb-bob forward model on tensors; and the host-side
+inverse map for image undistortion.  The two vehicle cameras' calibrations
+(ref camera.py:102-135) are the same numbers, and ``camera_from_extrinsic``
+rebuilds one from TF extrinsics.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .transforms import dehomogenize, homogenize, mm
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -24,6 +26,8 @@ class Camera:
       K       3x3 intrinsics
       R, t    world->camera rotation / translation
       P       3x4 projection  K [R|t]
+      T       4x4 extrinsic homogeneous transform
+      C       3x1 camera center in world frame (-R^T t)
       im_size (width, height)
       dist    plumb-bob coefficients (k1, k2, p1, p2, k3)
     """
@@ -42,6 +46,53 @@ class Camera:
     @property
     def P(self) -> np.ndarray:
         return self.K @ self.P_norm
+
+    @property
+    def T(self) -> np.ndarray:
+        T = np.vstack([self.P_norm, np.zeros((1, 4))])
+        T[-1, -1] = 1.0
+        return T
+
+    @property
+    def K_inv(self) -> np.ndarray:
+        return np.linalg.inv(self.K)
+
+    @property
+    def C_world(self) -> np.ndarray:
+        return -self.R.T @ self.t
+
+    def _as(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """A host calibration matrix in ``like``'s dtype, on its device."""
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+    def project(self, points_3d: torch.Tensor) -> torch.Tensor:
+        """World points (3, N) -> image pixels (2, N) (ref camera.py:87-91)."""
+        return dehomogenize(mm(self._as(self.P, points_3d), homogenize(points_3d)))
+
+    def pixel_to_ray(self, pts: torch.Tensor, world: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pixels (2, N) -> unit ray directions (3, N) + centre (3, 1).
+
+        Ref camera.py:58-72.  Each direction is divided by the sign of its
+        first coordinate (world rays) or its third (camera rays), so that it
+        points away from the camera consistently, as in the JAX package.
+        """
+        pts_norm = mm(self._as(self.K_inv, pts), homogenize(pts))
+        if world:
+            d = mm(self._as(self.R.T, pts), pts_norm)
+            d = d / torch.sign(d[0:1, :]) / torch.linalg.norm(d, dim=0, keepdim=True)
+            C = self._as(self.C_world, pts)
+        else:
+            d = pts_norm / torch.sign(pts_norm[2:3, :]) / torch.linalg.norm(
+                pts_norm, dim=0, keepdim=True)
+            C = torch.zeros((3, 1), dtype=d.dtype, device=d.device)
+        return d, C
+
+    def bounding_box_to_ray(self, bbox) -> Tuple[torch.Tensor, torch.Tensor]:
+        """World ray through a bounding box's bottom-centre point, in f32 (ref
+        camera.py:74-77)."""
+        ix, iy = bbox.bottom_point()
+        return self.pixel_to_ray(torch.tensor([[ix], [iy]], dtype=torch.float32), world=True)
 
     def distort_normalized(self, xy: torch.Tensor) -> torch.Tensor:
         """Apply plumb-bob distortion to normalized coords (2, N)."""

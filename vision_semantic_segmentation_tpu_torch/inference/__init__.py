@@ -6,6 +6,7 @@ from .predictor import (
     postprocess_labels,
     preprocess_frame,
 )
+from .convex_hull import generate_convex_hull
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -14,4 +15,5 @@ __all__ = [
     "colorize_labels",
     "postprocess_labels",
     "preprocess_frame",
+    "generate_convex_hull",
 ]

@@ -5,9 +5,9 @@ semantic_segmentation.py:20-57): build the model from config, load weights,
 and run normalize + forward + argmax per frame on ``device``.  On the card
 the forward's ASPP runs K4.  The JAX package's per-shape compile cache is a
 ``jit`` concern and has no counterpart: PyTorch runs eagerly.  Not ported
-yet: int8 serving (``quantize``, ``MODEL.QPACK``; ROADMAP queue 1 item 10)
+yet: int8 serving (``quantize``, ``MODEL.QPACK``; ROADMAP queue 1 item 5)
 and spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
-item 9); both raise ``NotImplementedError``.
+item 6); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,11 +46,11 @@ class SemanticSegmentation:
                  device: DeviceLike = "cuda"):
         if cfg.MODEL.get("QPACK"):
             raise NotImplementedError(
-                "MODEL.QPACK: int8 serving is not ported (ROADMAP queue 1 item 10, models/quant.py)")
+                "MODEL.QPACK: int8 serving is not ported (ROADMAP queue 1 item 5, models/quant.py)")
         if int(cfg.MODEL.get("SPATIAL_SHARDS", 0)) > 1:
             raise NotImplementedError(
                 "MODEL.SPATIAL_SHARDS: spatially sharded serving is not ported "
-                "(ROADMAP queue 1 item 9, parallel/)")
+                "(ROADMAP queue 1 item 6, parallel/)")
         if compute_dtype is None:
             compute_dtype = cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")
         self.dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
@@ -70,7 +70,7 @@ class SemanticSegmentation:
 
     def quantize(self, calib_images) -> None:
         raise NotImplementedError(
-            "int8 serving is not ported (ROADMAP queue 1 item 10, models/quant.py)")
+            "int8 serving is not ported (ROADMAP queue 1 item 5, models/quant.py)")
 
     @torch.no_grad()
     def _logits(self, image, upsample_pred: bool) -> torch.Tensor:

@@ -27,8 +27,12 @@ in place of the ``index_put_`` of 1.0; per-point mode sums the
 confidences.  K2 folds the result either way, and with every weight at 1
 the grid equals the unweighted one exactly.
 
-Not ported yet: ``update_map_planar`` and the sort / fold method switches,
-which choose between TPU formulations of the same update.
+The planar fallback (``update_map_planar``, ref mapping.py:446-488) fits an
+image -> grid homography on the host and warps the semantic image onto the
+grid on the grid's device; it adds per-class counts, not the evidence fold.
+
+Not ported: the sort / fold method switches, which choose between TPU
+formulations of the same update.
 """
 from __future__ import annotations
 
@@ -41,7 +45,15 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..geometry.camera import Camera, camera_setup_1, camera_setup_6
-from ..geometry.transforms import euler_matrix, homogenize, mm, pose_to_matrix, se3_inverse
+from ..geometry.homography import find_homography, warp_perspective
+from ..geometry.transforms import (
+    euler_matrix,
+    homogenize,
+    mm,
+    pose_to_matrix,
+    se3_inverse,
+    to_int32,
+)
 from ..ops.colormap import colors_to_labels
 from ..ops.kernels.fold import evidence_fold_add_
 
@@ -66,16 +78,6 @@ def velodyne_to_baselink() -> np.ndarray:
     T = euler_matrix(0.0, 0.140, 0.0)
     T[0:3, 3] = [2.64, 0.0, 1.98]
     return T
-
-
-def _to_int32(v: torch.Tensor) -> torch.Tensor:
-    """f32 -> int32 truncating toward zero, like the JAX package's ``astype``.
-
-    XLA's conversion saturates and maps NaN to 0, where a C cast is
-    undefined out of range; clamping to +-1e9 keeps every in-range value
-    and keeps out-of-image values out of the image.
-    """
-    return torch.nan_to_num(v, nan=0.0).clamp(-1e9, 1e9).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,10 +313,10 @@ class SemanticMappingEngine:
                 proj2 = mm(K[:2, :2], xy_d) + K[:2, 2:3]
                 # far-off-axis points blow the polynomial up; bound before
                 # the int cast (they are rejected by the masks anyway)
-                ixy = _to_int32(torch.clamp(proj2, -1e6, 1e6))
+                ixy = to_int32(torch.clamp(proj2, -1e6, 1e6))
             else:
                 proj = mm(P, homogenize(xyz_velo))
-                ixy = _to_int32(proj[:2] / proj[2])
+                ixy = to_int32(proj[:2] / proj[2])
 
             # visibility: in front, in range, inside the image (ref :378-383)
             front = (xyz_velo[0] > 0) & (xyz_velo[0] < range_max)
@@ -338,7 +340,7 @@ class SemanticMappingEngine:
 
             # grid cell from the point's map-frame x/y (ref :403-411)
             local = xyz[0:2] + offset
-            cell_rc = _to_int32((local - bmin) * inv_res)
+            cell_rc = to_int32((local - bmin) * inv_res)
             on_grid = (cell_rc[0] >= 0) & (cell_rc[0] < h) & (cell_rc[1] >= 0) & (cell_rc[1] < w)
             cell = cell_rc[0] * w + cell_rc[1]
             upd = vis & on_grid & (cls >= 0)
@@ -524,3 +526,58 @@ class SemanticMappingEngine:
             self.as_tensor(position, torch.float32),
             self.as_tensor(quaternion, torch.float32),
         )
+
+    # -- planar (homography) fallback ----------------------------------------
+    def anchor_points_2(self) -> np.ndarray:
+        """Grid-frame anchor pixels used to fit the homography (ref :160-163)."""
+        w, h = self.grid_spec.width, self.grid_spec.height
+        return np.array(
+            [[w, w / 2, w / 2, w], [h / 4, h / 4, h * 3 / 4, h * 3 / 4]], dtype=np.float64
+        )
+
+    def discretize_matrix_inv(self) -> np.ndarray:
+        """Grid pixel -> local metric coordinates (ref mapping.py:148-153)."""
+        spec = self.grid_spec
+        return np.array([
+            [spec.resolution, 0, spec.boundary[0][0]],
+            [0, spec.resolution, spec.boundary[1][1]],
+            [0, 0, 1],
+        ])
+
+    def update_map_planar(self, grid: torch.Tensor, image, T_local_to_base: np.ndarray,
+                          camera: str = "camera1") -> torch.Tensor:
+        """Project the semantic image onto the ground plane and accumulate, in place.
+
+        Ref mapping.py:446-488: anchor grid cells are cast local_map ->
+        base_link -> velodyne -> image (host numpy f64) to fit an image ->
+        grid homography (host DLT); the semantic image, nearest-warped onto
+        the grid on the grid's device, adds 1 to each class layer where its
+        first colour channel matches the class colour's, with the cells
+        closer than 8 m in x masked out; then ``grid = max(grid, 0)``.
+
+        The reference compares the warped pixels against label *name strings*
+        (``image_on_map[:, :, 0] == self.label_names[i]``, ref :474), which
+        is always False in python3, so its planar path adds nothing.  As in
+        the JAX package, the evident intent is implemented: match the first
+        colour channel.
+        """
+        cam = self.cameras[camera]
+        anchors = self.anchor_points_2()
+        pts_local = self.discretize_matrix_inv() @ np.vstack([anchors, np.ones((1, 4))])
+        pts_local[2, :] = 0.0
+        pts_local_h = np.vstack([pts_local, np.ones((1, 4))])
+
+        T_local_to_velodyne = (np.linalg.inv(self.T_velodyne_to_baselink)
+                               @ np.asarray(T_local_to_base, dtype=np.float64))
+        proj = cam.P @ (T_local_to_velodyne @ pts_local_h)
+        H = find_homography((proj[:2] / proj[2]).T, anchors.T)
+        spec = self.grid_spec
+        image_on_map = warp_perspective(self.as_tensor(image), H, (spec.width, spec.height),
+                                        mode="nearest")
+
+        sep = int((8 - spec.boundary[0][0]) / spec.resolution)
+        col_ok = torch.arange(spec.width, device=grid.device) >= sep
+        first = self.as_tensor(self.label_colors[:len(self.label_names), 0])
+        match = (image_on_map[..., 0][None] == first[:, None, None]) & col_ok
+        grid += match.to(grid.dtype)
+        return grid.clamp_(min=0.0)

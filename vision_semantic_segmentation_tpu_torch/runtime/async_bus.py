@@ -18,32 +18,34 @@ stalling the producer (ref README.md:194; mapping.py:281-284).  Here:
     device, so neither thread waits for the other's kernels.
 
 :func:`run_online` (``pipeline --rate`` on the command line) drives a bag
-through the node topology at a wall-clock rate and reports drops and lag.
-Not ported yet: the decode-ahead feed ``play_stream_timed``
-(``decode_ahead=True``), ROADMAP queue 1 item 7.2 — the JAX package's
-applies ``/tf`` up to ``lookahead_s`` ahead of the frames it belongs to,
-and is to be ported with that repaired.
+through the node topology at a wall-clock rate and reports drops and lag,
+fed by :func:`play_bag_timed` or, with ``decode_ahead=True``, by
+:func:`play_stream_timed`, which decodes the bag on a worker thread.  The
+decode-ahead feed deviates from the JAX package's on purpose: it holds each
+``/tf`` until the timeline reaches its stamp (the JAX feed applies it up to
+``lookahead_s`` early, before the frames it follows), it leaves the TF tree
+to the node's ``/tf`` subscription (the JAX feed also sets the tree itself,
+so every transform is applied twice), and it publishes each cloud once,
+keyed on the cloud's stamp (not on the identity of the last one).
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import itertools
 import logging
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..device import DeviceLike
 from .bus import Message, TopicBus
 
-__all__ = ["NodeExecutor", "PlaybackReport", "play_bag_timed", "run_online"]
-
-DECODE_AHEAD_REFUSED = (
-    "decode_ahead: the decode-ahead feed (play_stream_timed) is not ported; the JAX "
-    "package's applies /tf up to 0.5 s ahead of its frames, and it waits to be ported "
-    "with that repaired (ROADMAP queue 1 item 7.2)")
+__all__ = ["NodeExecutor", "PlaybackReport", "play_bag_timed", "play_stream_timed",
+           "run_online"]
 
 log = logging.getLogger(__name__)
 
@@ -198,34 +200,108 @@ def play_bag_timed(bag_path: str, bus: TopicBus, rate: float = 1.0, tf_tree=None
     """
     from .bag_adapter import play_bag_records
 
-    if rate <= 0:
-        raise ValueError(f"rate must be positive, got {rate}")
-    report = PlaybackReport(rate=rate)
-    wall0 = None
-    stamp0 = None
-    horizon = None  # running max stamp: the playback timeline position
+    pacer = _Pacer(rate)
+    pacer.report.published = play_bag_records(bag_path, bus, tf_tree=tf_tree,
+                                              topic_map=topic_map, pace=pacer)
+    return pacer.finish()
 
-    def pace(stamp: float) -> None:
-        nonlocal wall0, stamp0, horizon
+
+class _Pacer:
+    """Holds a bag's timeline on the wall clock: ``pacer(stamp)`` sleeps
+    until ``wall_start + (stamp - stamp0) / rate`` and charges lateness to
+    the report's ``max_lag_s``."""
+
+    def __init__(self, rate: float):
+        if rate <= 0:
+            raise ValueError(f"rate must be positive, got {rate}")
+        self.rate = rate
+        self.report = PlaybackReport(rate=rate)
+        self.wall0: Optional[float] = None
+        self.stamp0: Optional[float] = None
+        self.horizon: Optional[float] = None  # running max stamp: the timeline position
+
+    def __call__(self, stamp: float) -> None:
         now = time.monotonic()
-        if wall0 is None:
-            wall0, stamp0, horizon = now, stamp, stamp
-        if stamp <= horizon:
+        if self.wall0 is None:
+            self.wall0, self.stamp0, self.horizon = now, stamp, stamp
+        if stamp <= self.horizon:
             # out-of-order record (bags interleave streams): publish at the
             # current timeline position, no sleep, no lag charged
             return
-        horizon = stamp
-        due = wall0 + (stamp - stamp0) / rate
+        self.horizon = stamp
+        due = self.wall0 + (stamp - self.stamp0) / self.rate
         if due > now:
             time.sleep(due - now)
         else:
-            report.max_lag_s = max(report.max_lag_s, now - due)
+            self.report.max_lag_s = max(self.report.max_lag_s, now - due)
 
-    report.published = play_bag_records(bag_path, bus, tf_tree=tf_tree, topic_map=topic_map,
-                                        pace=pace)
-    report.bag_duration_s = (horizon - stamp0) if stamp0 is not None else 0.0
-    report.wall_duration_s = (time.monotonic() - wall0) if wall0 is not None else 0.0
-    return report
+    def finish(self) -> PlaybackReport:
+        r = self.report
+        if self.wall0 is not None:
+            r.bag_duration_s = self.horizon - self.stamp0
+            r.wall_duration_s = time.monotonic() - self.wall0
+        return r
+
+
+def play_stream_timed(bag_path: str, bus: TopicBus, rate: float = 1.0,
+                      image_topic: str = "/camera1/image_raw", pcd_topic: str = "/reduced_map",
+                      pose_topic: str = "/current_pose", lookahead_s: float = 0.5,
+                      max_buffered: int = 16, image_topics: Optional[Sequence[str]] = None,
+                      with_tf: bool = False) -> PlaybackReport:
+    """Timed playback with decode ahead: the streamed twin of :func:`play_bag_timed`.
+
+    :func:`~.bag_adapter.stream_bag_frames` reads, decodes and syncs the bag
+    on a worker thread into a bounded queue (``max_buffered`` frames), and
+    this thread only publishes decoded frames on the bag's timeline: the
+    decode of the next frames overlaps the nodes' work on this one.  If the
+    decode cannot hold the timeline, the lateness shows in ``max_lag_s``.
+
+    Each frame publishes its cloud (once per cloud, keyed on the cloud's
+    stamp, at that stamp), its pose and its image (``/<camera>/image_raw``,
+    one topic per camera of ``image_topics``).  With ``with_tf``, every
+    ``/tf`` and ``/tf_static`` record is held until the timeline reaches
+    its stamp and then published on ``/tf``, where a node's subscription
+    folds it into its TF tree; the worker reads a record up to
+    ``lookahead_s`` ahead of the frames that come before it, so publishing
+    it as read would give those frames a later transform.  Frames are
+    published after the sync: an image that finds no cloud and pose within
+    ``lookahead_s`` is not published, and other topics are not surfaced.
+    """
+    from .bag_adapter import TFRecord, stream_bag_frames
+
+    pacer = _Pacer(rate)
+    report = pacer.report
+    held: list = []  # (stamp, arrival, TFRecord) heap: /tf not yet due
+    arrival = itertools.count()
+    clouds_published: set = set()
+
+    def publish_tf(upto: float) -> None:
+        while held and held[0][0] <= upto:
+            stamp, _, rec = heapq.heappop(held)
+            pacer(stamp)
+            bus.publish("/tf", rec.msg, stamp=stamp)
+            report.published += 1
+
+    for f in stream_bag_frames(bag_path, image_topic=image_topic, pcd_topic=pcd_topic,
+                               pose_topic=pose_topic, lookahead_s=lookahead_s,
+                               max_buffered=max_buffered, image_topics=image_topics,
+                               with_tf=with_tf):
+        if isinstance(f, TFRecord):
+            heapq.heappush(held, (f.stamp, next(arrival), f))
+            continue
+        publish_tf(f.stamp)
+        pacer(f.stamp)
+        if f.pcd_stamp not in clouds_published:
+            # clouds arrive ~1 Hz against a 12 Hz camera: each once, as
+            # play_bag_timed publishes the cloud stream
+            clouds_published.add(f.pcd_stamp)
+            bus.publish(pcd_topic, f.pcd, stamp=f.pcd_stamp, frame_id=f.pcd_frame_id)
+            report.published += 1
+        bus.publish(pose_topic, (f.position, f.quaternion), stamp=f.stamp)
+        bus.publish(f"/{f.camera}/image_raw", f.semantic_image, stamp=f.stamp, frame_id=f.camera)
+        report.published += 2
+    publish_tf(float("inf"))
+    return pacer.finish()
 
 
 def run_online(cfg, bag_path: str, rate: float = 1.0, predictor=None, engine=None,
@@ -241,14 +317,19 @@ def run_online(cfg, bag_path: str, rate: float = 1.0, predictor=None, engine=Non
     fused step per frame).  ``predictor`` / ``engine`` / ``pipeline`` inject
     prebuilt SemanticSegmentation / SemanticMappingEngine /
     FusedFramePipeline instances (``pipeline`` only for the fused topology;
-    a ``predictor``'s weights serve both).  Returns a :class:`PlaybackReport`
-    with per-topic drops, the frames fused and the final grid.
+    a ``predictor``'s weights serve both).  ``decode_ahead=True`` feeds the
+    nodes through :func:`play_stream_timed` (the bag decoded on a worker
+    thread, every camera the nodes take and ``/tf``) instead of
+    :func:`play_bag_timed`; that feed pairs each image with a cloud, so a
+    planar node gets frames only from a bag that records clouds on
+    ``/reduced_map``, as in the JAX package.  Returns a
+    :class:`PlaybackReport` with per-topic drops, the frames fused and the
+    final grid.
     """
     from ..utils.ros_compat import TransformTree
+    from .bag_adapter import _camera_of_topic
     from .node import FusedOnlineNode, MappingNode, SegmentationNode
 
-    if decode_ahead:
-        raise NotImplementedError(DECODE_AHEAD_REFUSED)
     bus = TopicBus()
     tf_tree = TransformTree()
     if fused:
@@ -269,7 +350,14 @@ def run_online(cfg, bag_path: str, rate: float = 1.0, predictor=None, engine=Non
         execs = [("seg", seg_exec), ("map", map_exec)]
 
     try:
-        report = play_bag_timed(bag_path, bus, rate=rate)
+        if decode_ahead:
+            report = play_stream_timed(
+                bag_path, bus, rate=rate, pcd_topic=mapping_node.pcd_topic or "/reduced_map",
+                image_topics=[f"/{_camera_of_topic(t)}/image_raw"
+                              for t in mapping_node.IMAGE_TOPICS],
+                with_tf=True)
+        else:
+            report = play_bag_timed(bag_path, bus, rate=rate)
         for _, ex in execs:
             ex.join()  # mapping drains frames published upstream while joining
     finally:

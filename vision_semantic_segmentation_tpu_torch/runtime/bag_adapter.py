@@ -49,9 +49,11 @@ class _ConsumerGone(BaseException):
 class TFRecord:
     """A /tf (tf2_msgs/TFMessage) record surfaced by stream_bag_frames.
 
-    Emitted as soon as the worker reads it — at or before its bag
-    position relative to the frames, never late — so consumers can apply
-    transforms before the frames that depend on them."""
+    Emitted as soon as the worker reads it: never after the frames stamped
+    after it, but possibly up to ``lookahead_s`` before frames stamped
+    before it, which the worker still holds for their sync.  A consumer
+    that applies transforms on the bag's timeline holds each record until
+    then, as :func:`~.async_bus.play_stream_timed` does."""
 
     __slots__ = ("stamp", "msg")
 
@@ -267,6 +269,7 @@ def stream_bag_frames(
                     quaternion=np.asarray(pose.quaternion),
                     camera=cam,
                     stamp=stamp,
+                    pcd_stamp=cloud_stamp,
                 )):
                     raise _ConsumerGone
                 # prune history no future image (stamp >= this one, modulo

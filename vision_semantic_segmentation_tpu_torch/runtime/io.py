@@ -16,7 +16,7 @@ import dataclasses
 import os
 import os.path as osp
 import pickle
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +32,8 @@ class FrameRecord:
     quaternion: np.ndarray         # (4,) pose orientation x, y, z, w
     camera: str = "camera1"
     stamp: float = 0.0
+    # the paired cloud's own stamp, where a stream knows it (not saved)
+    pcd_stamp: Optional[float] = None
 
 
 def save_frames(frames: Sequence[FrameRecord], path: str) -> None:

@@ -16,7 +16,7 @@ device for the whole sequence; only the rendered map comes back.
 
 Not ported yet, and refused with ``NotImplementedError``: grid-sharded
 replay (``MAPPING.GRID_SHARDS`` > 1) and frame-parallel replay (ROADMAP
-queue 1 item 9).
+queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from ..utils.file_io import makedirs
 from ..utils.logger import MyLogger
 from .io import FrameRecord, iter_sequence_files, load_frames, load_reference_dump
 
-_PARALLEL_REPLAY = "(ROADMAP queue 1 item 9, parallel/)"
+_PARALLEL_REPLAY = "(ROADMAP queue 1 item 6, parallel/)"
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
