@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --sweep    # setup, then the kernels' launch choices timed
+    python3 chip_smoke.py --training # setup, then phase 7 alone (development only:
+                                     # no kernels line, no contract last line)
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -83,11 +85,36 @@ Phases (any failure raises, so the exit code is non-zero):
    the fused CLI path's host steps (decode, staging, window, render, PNG)
    one at a time.
 
+7. Training on the card (outputs under the git-ignored
+   ``build/chip_smoke_train/``).  (a) ``DepthwiseBranches`` (K4 forward, K3
+   on the flipped taps for dx, f32 wgrad) against autograd of the plain
+   twin at ASPP's OS16 training shape (16 frames of 33x33x2048, d
+   6/12/18), at the OS8 shape (65x65x2048, d 12/24/36) and on the
+   single-branch K3 route, in f32 and bf16: the forward equal, dx and dW
+   within the stated tolerances; and the time of dgrad and wgrad at the
+   OS16 shape.  (b) ``main(["train", "--cfg", "configs/example_train.yaml",
+   ...])`` at full width (DeepLabV3+ ResNeXt50-32x4d OS16, 19 classes,
+   513x513 crops, batch 16, SGD, poly LR) over a Mapillary-layout dataset
+   of 32 rendered 1440x1920 scene frames (PNG data under ``.jpg`` names)
+   and 4 validation frames, 4 epochs (8 steps), in f32 and in bf16: finite
+   loss whose last 4 steps average below its first 4, K4 16 and K3 48
+   launches a step (K4 one more per validation frame), steps/s, images/s,
+   peak memory, the host's wait for data against the step, and the card's
+   busy share over one step; then AUTO_RESUME from the ``last_checkpoint``
+   pointer at its saved step.  (c) The trained checkpoint through
+   ``MODEL.WEIGHT`` into a ``FusedFramePipeline`` segmenting one
+   full-width frame.  (d) The golden scene: ``train_segmenter`` (resnet18
+   OS16 at 144x192, 8 train and 8 held-out views, at most 300 steps), then
+   ``pipeline --fused`` over the 90-frame golden bag, scored against
+   ``truth.npy`` with the floors of ``tests/test_e2e_golden.py`` (road 0.88,
+   crosswalk 0.92, lane 0.80, mIoU 0.87).
+
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import shutil
 import struct
@@ -101,7 +128,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
+from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults, get_train_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.mapping import (
     LABEL_COLORS,
     PCD_ORIGIN_OFFSET,
@@ -116,7 +143,15 @@ from vision_semantic_segmentation_tpu_torch.inference import (
     colorize_labels,
     postprocess_labels,
 )
+from vision_semantic_segmentation_tpu_torch.evaluation import synthetic_scene as scene
+from vision_semantic_segmentation_tpu_torch.evaluation.map_eval import MapEvaluator
+from vision_semantic_segmentation_tpu_torch.models import build_train_model
+from vision_semantic_segmentation_tpu_torch.models.convert import load_weights
+from vision_semantic_segmentation_tpu_torch.ops.colormap import MAPILLARY_19_PALETTE
 from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
+from vision_semantic_segmentation_tpu_torch.ops.resize import resize_area
+from vision_semantic_segmentation_tpu_torch.train.transforms import Compose, Normalize, ToTensor
+from vision_semantic_segmentation_tpu_torch.utils import image_io
 from vision_semantic_segmentation_tpu_torch.runtime import (
     FrameRecord,
     FusedFramePipeline,
@@ -135,6 +170,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 WINDOW = 8
 IMAGE_HW = (1440, 1920)
+
+
+def has_module(name: str) -> bool:
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # the parent package is missing
+        return False
 
 
 def smi_line() -> str:
@@ -1262,6 +1304,337 @@ def where_time_goes(what: str, step, top: int = 12) -> None:
         print(f"  {us / 1e3:8.3f} ms {us / 1e3 / device_ms:6.1%} x{count:<4d} {name[:110]}", flush=True)
 
 
+
+# -- phase 7: training ------------------------------------------------------------
+TRAIN = REPO / "build" / "chip_smoke_train"
+TRAIN_BATCH = 16
+# example_train.yaml names its transforms without the arguments their
+# constructors need (the JAX package's build_transform raises on it too):
+# the same chains with the 513x513 crop and the ImageNet statistics
+NORM_MEAN, NORM_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+TRAIN_AUG = (f"[RandomHorizontalFlip, [RandomSizeAndCrop, 513, [0.5, 2.0], 255], ToTensor, "
+             f"[Normalize, {NORM_MEAN}, {NORM_STD}]]")
+VAL_AUG = f"[[FixScaleCenterCrop, 513], ToTensor, [Normalize, {NORM_MEAN}, {NORM_STD}]]"
+# 7(c): the served bf16 network's logits against the trained f32 network's,
+# as a share of the largest f32 logit.  bf16 keeps 8 significant bits (2^-8
+# per rounding); the network rounds its activations once per block, 16
+# bottleneck blocks deep, and the errors add: 16 x 2^-8 = 2^-4.  Weights or
+# an input that did not cross would differ by the logits' own size.
+SERVE_TOL = 2.0 ** -4
+GRAD_CASES = [  # name, (frames, H, W, C), dilations
+    ("OS16 ASPP", (TRAIN_BATCH, 33, 33, 2048), (6, 12, 18)),
+    ("OS8 ASPP", (4, 65, 65, 2048), (12, 24, 36)),
+    ("single-branch K3", (4, 33, 33, 2048), (12,)),
+]
+
+
+def plain_branches(x, w9s, dils):
+    """Autograd of the plain twins, frame by frame as the wrappers run them."""
+    c = x.shape[-1]
+    outs = [[] for _ in dils]
+    with K.plain_versions():
+        for i in range(x.shape[0]):
+            kernels = [w9s[b].reshape(3, 3, 1, c) for b in range(len(dils))]
+            frame = x[i:i + 1]
+            ys = ([depthwise.depthwise3x3_dilated(frame, kernels[0], dils[0])] if len(dils) == 1
+                  else depthwise.aspp_depthwise3x3_multi(frame, kernels, dils))
+            for b, y in enumerate(ys):
+                outs[b].append(y)
+    return [torch.cat(o) for o in outs]
+
+
+def grad_checks(smi: str) -> None:
+    """(a) DepthwiseBranches against autograd of the plain twin.
+
+    Tolerances, as a share of the largest reference value: dx 1e-5 in f32
+    (the same products summed in another order), 2**-7 in bf16 (the kernel
+    route rounds each branch's dx to bf16 before the f32 sum over branches,
+    autograd of the twin rounds once); dW 1e-4 (f32 sums over up to 17424
+    pixels a tap, in another order).
+    """
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, shape, dils in GRAD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w9s = torch.randn((len(dils), 9, shape[-1]), generator=gen, device="cuda")
+            dys = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in dils]
+            results = []
+            for run in ("kernels", "plain"):
+                xg, wg = x.clone().requires_grad_(True), w9s.clone().requires_grad_(True)
+                ys = (depthwise.DepthwiseBranches.apply(xg, wg, dils) if run == "kernels"
+                      else plain_branches(xg, wg, dils))
+                torch.autograd.backward(list(ys), dys)
+                results.append(([y.detach() for y in ys], xg.grad, wg.grad))
+            (ys, dx, dw), (ys_p, dx_p, dw_p) = results
+            y_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ys, ys_p))
+            dx_err = float((dx.float() - dx_p.float()).abs().max())
+            dw_err = float((dw - dw_p).abs().max())
+            dx_tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * float(dx_p.float().abs().max())
+            dw_tol = 1e-4 * float(dw_p.abs().max())
+            print(f"grad {name} {tuple(shape)} d={dils} {str(dtype)[6:]}: forward max|err| {y_err}, "
+                  f"dx max|err| {dx_err:.3e} (tolerance {dx_tol:.3e}), dW max|err| {dw_err:.3e} "
+                  f"(tolerance {dw_tol:.3e})", flush=True)
+            if y_err != 0 or not dx_err <= dx_tol or not dw_err <= dw_tol:
+                raise AssertionError(f"DepthwiseBranches {name} {dtype}: gradient differs from the "
+                                     "plain twin's")
+    # the backward's two halves at the OS16 training shape, bf16
+    _, shape, dils = GRAD_CASES[0]
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w9s = torch.randn((len(dils), 9, shape[-1]), generator=gen, device="cuda")
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    flipped = w9s.flip(1).contiguous()
+    dgrad = cuda_ms(lambda: [depthwise._k3(dy[i:i + 1], flipped[b], d)
+                             for i in range(shape[0]) for b, d in enumerate(dils)], 10)
+    wgrad = cuda_ms(lambda: [depthwise.depthwise_wgrad_plain(x, dy, d) for d in dils], 10)
+    forward = cuda_ms(lambda: [depthwise._k4(x[i:i + 1], w9s, dils) for i in range(shape[0])], 10)
+    print(f"ASPP depthwise at {tuple(shape)} d={dils} bf16, per train step on {smi}: forward "
+          f"(K4 x {shape[0]}) {forward:.3f} ms, dgrad (K3 x {shape[0] * len(dils)}) {dgrad:.3f} ms, "
+          f"plain f32 wgrad (x {len(dils)}) {wgrad:.3f} ms", flush=True)
+
+
+def write_mapillary(root: Path, n_train: int = 32, n_val: int = 4) -> None:
+    """A Mapillary-layout dataset of rendered scene frames: 19-class labels
+    (the network ids), images PNG data under .jpg names, as 1440x1920."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    poses = scene.make_poses()
+    picks = np.linspace(0, len(poses) - 1, n_train + n_val).round().astype(int)
+    labels = [{"name": str(i), "readable": str(i), "color": c.tolist()}
+              for i, c in enumerate(MAPILLARY_19_PALETTE)]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps({"labels": labels}))
+
+    def one(k: int) -> None:
+        split = "training" if k < n_train else "validation"
+        img, lab = scene.render_frame(*poses[picks[k]])
+        image_io.write_png(str(root / split / "images" / f"{k:04d}.jpg"), img, level=1)
+        image_io.write_png(str(root / split / "labels" / f"{k:04d}.png"), lab.astype(np.uint8),
+                           level=1)
+
+    for split in ("training", "validation"):
+        for sub in ("images", "labels"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(n_train + n_val)))
+
+
+def train_run(what: str, out: Path, epochs: int, smi: str, extra=(), steps_before: int = 0):
+    """One ``train`` command at full width; checks and prints the run."""
+    args = ["train", "--cfg", str(REPO / "configs" / "example_train.yaml"),
+            "DATASET.ROOT_DIR", str(TRAIN / "data"), "OUTPUT_DIR", str(out),
+            "SCHEDULER.MAX_EPOCH", str(epochs), "DATALOADER.NUM_WORKERS", "8",
+            "TRAIN.AUGMENTATION", TRAIN_AUG, "VALIDATE.AUGMENTATION", VAL_AUG, *extra,
+            "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = cli_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    hist = trainer.history
+    steps = len(hist)
+    val_frames = sum(1 for _ in (TRAIN / "data" / "validation" / "images").iterdir())
+    epochs_run = epochs - steps_before // 2
+    want = {k.name: 0 for k in K.kernels()}
+    want.update({"aspp_depthwise3x3_multi": TRAIN_BATCH * steps + val_frames * epochs_run,
+                 "depthwise3x3_dilated": 3 * TRAIN_BATCH * steps})
+    losses = [h["loss"] for h in hist]
+    batch_t = np.median([h["batch_time"] for h in hist])
+    data_t = np.median([h["data_time"] for h in hist])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train {what}: {steps} steps (steps {hist[0]['step']}-{hist[-1]['step']}) in "
+          f"{wall:.1f} s command time on {smi}; median step {batch_t * 1e3:.1f} ms = "
+          f"{1 / batch_t:.3f} steps/s = {TRAIN_BATCH / batch_t:.2f} images/s (host clock between "
+          f"steps), median host wait for data {data_t * 1e3:.1f} ms a step; peak memory "
+          f"allocated {peak:.2f} GiB; launches {launches} ({launches['aspp_depthwise3x3_multi']} "
+          f"K4 = {TRAIN_BATCH} x {steps} steps + {val_frames} x {epochs_run} validation frames, "
+          f"{launches['depthwise3x3_dilated']} K3 = 48 x {steps}); best val mIoU "
+          f"{trainer.best_metric:.4f}", flush=True)
+    print(f"  loss per step: {[round(v, 4) for v in losses]}", flush=True)
+    if launches != want:
+        raise AssertionError(f"train {what}: launches {launches} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {what}: loss not finite")
+    return trainer
+
+
+def train_phase(smi: str) -> Path:
+    """(b) full-width training through the command line; returns the f32
+    run's checkpoint named by its pointer."""
+    t0 = time.perf_counter()
+    write_mapillary(TRAIN / "data")
+    print(f"train data: 32 + 4 rendered 1440x1920 frames written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    f32 = train_run("f32", TRAIN / "f32", 4, smi)
+    losses = [h["loss"] for h in f32.history]
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"train f32: the loss did not fall: {losses}")
+    # one more step, inputs on the card, under the profiler
+    image = torch.randn((TRAIN_BATCH, 513, 513, 3), device="cuda")
+    label = torch.randint(0, 19, (TRAIN_BATCH, 513, 513), device="cuda")
+    where_time_goes("one f32 train step, batch 16 at 513x513 (inputs on the card)",
+                    lambda: f32._train_step(f32.state, {"image": image, "label": label}))
+    bf16 = train_run("bf16", TRAIN / "bf16", 4, smi, extra=("TRAIN.COMPUTE_DTYPE", "bfloat16"))
+    losses = [h["loss"] for h in bf16.history]
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"train bf16: the loss did not fall: {losses}")
+    where_time_goes("one bf16 train step, batch 16 at 513x513 (inputs on the card)",
+                    lambda: bf16._train_step(bf16.state, {"image": image, "label": label}))
+    del f32, bf16, image, label
+    torch.cuda.empty_cache()
+    pointer = (TRAIN / "f32" / "last_checkpoint").read_text().strip()
+    saved = torch.load(TRAIN / "f32" / pointer, map_location="cpu", weights_only=False)["step"]
+    resumed = train_run("f32 resumed (AUTO_RESUME)", TRAIN / "f32", 5, smi, steps_before=saved)
+    steps = [h["step"] for h in resumed.history]
+    print(f"  resumed from {pointer} at step {saved}: steps {steps}", flush=True)
+    if steps != [saved + 1, saved + 2]:
+        raise AssertionError(f"resume from {pointer} (step {saved}) ran steps {steps}")
+    del resumed
+    torch.cuda.empty_cache()
+    return TRAIN / "f32" / (TRAIN / "f32" / "last_checkpoint").read_text().strip()
+
+
+def serve_trained(weights: Path, smi: str) -> None:
+    """(c) the trained checkpoint through MODEL.WEIGHT into the fused
+    pipeline, its network configured as example_train.yaml trained it (the
+    serving defaults' decoder is wider), held against the train command's
+    own network: the served bf16 weights equal the checkpoint's, the
+    pipeline's input equals the training chain's ToTensor and Normalize on
+    the same scaled frame, and the served logits equal the trained f32
+    network's, in eval(), on that input within SERVE_TOL."""
+    trained = get_train_cfg_defaults()
+    trained.merge_from_file(str(REPO / "configs" / "example_train.yaml"))
+    cfg = get_cfg_defaults()
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    for key in ("BACKBONE", "OUTPUT_STRIDE", "ASPP", "DECODER"):
+        net.MODEL[key] = trained.MODEL[key]
+    net.DATASET.NUM_CLASSES = trained.DATASET.NUM_CLASSES
+    net.MODEL.WEIGHT = str(weights)
+    pipeline = FusedFramePipeline(cfg, load_weights(net.MODEL.WEIGHT), device="cuda")
+    img, lab = scene.render_frame(*scene.make_poses()[5])
+    frame = torch.from_numpy(img).cuda()
+    seen = {}
+    hook = pipeline.model.register_forward_pre_hook(lambda m, a: seen.setdefault("x", a[0]))
+    K.reset_launch_counts()
+    logits = pipeline.segment(frame)
+    launches = launches_now()
+    hook.remove()
+
+    # the train command's network, from the checkpoint its trainer saved
+    state = torch.load(weights, map_location="cuda", weights_only=False)["model"]
+    model = build_train_model(trained, device="cuda")[0]
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    served = pipeline.model.state_dict()
+    weights_equal = all(torch.equal(served[k], v.to(served[k].dtype)) for k, v in state.items())
+    h, w = img.shape[:2]
+    s = pipeline.image_scale
+    small = resize_area(frame, (int(h * s), int(w * s))) if s < 1.0 else frame
+    chain = Compose([ToTensor(), Normalize(NORM_MEAN, NORM_STD)])
+    x_train = chain({"image": small.cpu().numpy(), "label": np.zeros(small.shape[:2])})["image"]
+    x_train = torch.from_numpy(x_train).cuda().permute(2, 0, 1)[None]
+    x = seen["x"]
+    input_err = float((x_train.to(x.dtype).float() - x.float()).abs().max())
+    # one bf16 step at the largest value: the card divides by 255 as a
+    # product with its reciprocal, numpy divides, and the last f32 bit can
+    # round the bf16 result the other way
+    input_tol = 2.0 ** -7 * float(x.float().abs().max())
+    with torch.no_grad():
+        ref = model(x.float(), upsample_pred=pipeline.upsample_pred)
+    logit_err = float((logits.float() - ref).abs().max())
+    logit_tol = SERVE_TOL * float(ref.abs().max())
+    pred, ref_pred = logits.argmax(1)[0], ref.argmax(1)[0]
+    agree = float((pred == ref_pred).float().mean())
+    truth = scene.subsample_labels(lab, tuple(pred.shape))
+    acc = float((pred.cpu().numpy() == truth).mean())
+    ref_acc = float((ref_pred.cpu().numpy() == truth).mean())
+
+    def top(a):
+        ids, counts = np.unique(a, return_counts=True)
+        return {int(i): round(c / a.size, 4) for c, i in sorted(zip(counts, ids), reverse=True)[:3]}
+
+    print(f"serving the trained weights ({weights.name}) on {smi}: logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite {bool(torch.isfinite(logits).all())}, K4 launches "
+          f"{launches['aspp_depthwise3x3_multi']}; served weights equal the checkpoint's (as "
+          f"{x.dtype}) {weights_equal}; input {tuple(x.shape)} against the training chain's "
+          f"ToTensor+Normalize max|err| {input_err} (tolerance {input_tol:.4f}); logits against the trained f32 "
+          f"network in eval() max|err| {logit_err:.4f} (tolerance {logit_tol:.4f} = 2^-4 of its "
+          f"largest logit), argmax agreement {agree:.4f}", flush=True)
+    print(f"  pixel accuracy against the frame's labels: served {acc:.4f}, trained f32 network "
+          f"{ref_acc:.4f}; predicted classes (share) {top(pred.cpu().numpy())}, the frame's "
+          f"classes {top(truth)}", flush=True)
+    if not (bool(torch.isfinite(logits).all()) and launches["aspp_depthwise3x3_multi"] == 1
+            and weights_equal and input_err <= input_tol and logit_err <= logit_tol):
+        raise AssertionError("serving the trained weights failed")
+
+
+def golden_phase(smi: str) -> None:
+    """(d) the golden scene trained on the card, mapped and scored."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = TRAIN / "golden"
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    poses = scene.make_poses()
+    with ThreadPoolExecutor(8) as pool:
+        rendered = list(pool.map(lambda pq: scene.render_frame(*pq), poses))
+    images = [r[0] for r in rendered]
+    train_idx = list(range(0, len(poses), len(poses) // 8))[:8]
+    stride = len(poses) // 8
+    val_idx = [min(i + max(1, stride // 2), len(poses) - 1) for i in train_idx]
+
+    def small(idx):
+        return ([resize_area(torch.from_numpy(images[i]).cuda(), (144, 192)).cpu().numpy()
+                 .astype(np.float32) for i in idx], [rendered[i][1][4::10, 4::10] for i in idx])
+
+    frames, labels = small(train_idx)
+    val_frames, val_labels = small(val_idx)
+    print(f"golden scene: 90 frames rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+    weights = root / "segmenter.pth"
+    t0 = time.perf_counter()
+    acc = scene.train_segmenter(frames, labels, str(weights), max_steps=300,
+                                val_frames=val_frames, val_labels=val_labels, device="cuda",
+                                log=lambda m: print(m, flush=True))
+    print(f"golden segmenter trained in {time.perf_counter() - t0:.1f} s on {smi}: train-batch "
+          f"accuracy {acc:.4f} (evaluation step)", flush=True)
+    gt = root / "gt"
+    gt.mkdir(exist_ok=True)
+    scene.write_truth_arrays(str(gt))
+    bag = scene.build_scene_bag(str(root / "golden.npz"), images, poses)
+    cfg = scene.apply_scene_mapping_cfg(scene.scene_network_cfg(str(weights)), image_scale=0.1)
+    cfg.OUTPUT_DIR = str(root / "out")
+    cfg.GROUND_TRUTH_DIR = str(gt)
+    (root / "golden.yaml").write_text(cfg.dump())
+    K.reset_launch_counts()
+    run = cli_main(["pipeline", "--cfg", str(root / "golden.yaml"), "--bag", bag, "--fused"])
+    launches = launches_now()
+    result = MapEvaluator(ground_truth_dir=str(gt)).test_single_map(run.color_map, verbose=False)
+    iou = result["iou"]
+    print(f"golden map on the card ({run.frames} frames, {run.frames / run.seconds:.3f} frames/s, "
+          f"launches {launches}): IoU road {iou['road']:.4f} (floor 0.88), crosswalk "
+          f"{iou['crosswalk']:.4f} (0.92), lane {iou['lane']:.4f} (0.80), mIoU "
+          f"{result['miou']:.4f} (0.87); accuracy {result['mean_accuracy']:.4f}, per class "
+          f"{ {k: round(v, 4) for k, v in result['accuracy'].items()} }, missing rate "
+          f"{result['missing_rate']:.6f}", flush=True)
+    if not (iou["road"] >= 0.88 and iou["crosswalk"] >= 0.92 and iou["lane"] >= 0.80
+            and result["miou"] >= 0.87):
+        raise AssertionError(f"golden map under its floors: {result}")
+
+
+def training_phase(smi: str) -> None:
+    """Phase 7: (a) gradients, (b) training, (c) serving, (d) the golden scene."""
+    if TRAIN.exists():
+        shutil.rmtree(TRAIN)
+    t0 = time.perf_counter()
+    grad_checks(smi)
+    weights = train_phase(smi)
+    serve_trained(weights, smi)
+    golden_phase(smi)
+    print(f"phase 7 (training) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def sweep(smi: str) -> None:
     """Launch choices at the main path's shapes, each checked against the
     default's output and timed with CUDA events on one set of inputs: K4's
@@ -1326,6 +1699,9 @@ def main() -> None:
     smi = smi_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print("image libraries on this machine: " + ", ".join(
+        f"{name} {'yes' if has_module(name) else 'no'}"
+        for name in ("PIL", "cv2", "torchvision.io")), flush=True)
     t0 = time.perf_counter()
     seconds = K.build_all()
     print(f"kernel build {time.perf_counter() - t0:.1f} s {seconds}", flush=True)
@@ -1335,6 +1711,9 @@ def main() -> None:
                 print(f"  {k.source}: {line.strip()}", flush=True)
     if "--sweep" in sys.argv[1:]:
         sweep(smi)
+        return
+    if "--training" in sys.argv[1:]:
+        training_phase(smi)
         return
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1387,6 +1766,9 @@ def main() -> None:
     where_time_goes("CLI replay of the pre-segmented .npz (the whole call)", lambda: cli_main([
         "replay", "--cfg", overlay("replay_profiled", weights), "--input-dir",
         str(CLI / "replay_all")]), top=6)
+    del pipeline, frames
+    torch.cuda.empty_cache()
+    training_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -30,9 +30,9 @@ from vision_semantic_segmentation_tpu_torch.models import (
     build_model,
     flax_to_state_dict,
 )
-from vision_semantic_segmentation_tpu_torch.models import layers
 from vision_semantic_segmentation_tpu_torch.models.layers import DepthwiseConv2d
 from vision_semantic_segmentation_tpu_torch.models.resnet import BasicBlock, Bottleneck
+from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise as dw_kernels
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ATOL = 1e-4
@@ -163,7 +163,8 @@ class TestBlocks:
 
 
 def _spy_depthwise(monkeypatch):
-    """Count the ASPP's calls of the K4 and K3 wrappers (their plain route on the CPU)."""
+    """Count the ASPP's per-frame K4 and K3 calls (their plain route on the
+    CPU), which ``DepthwiseBranches`` makes for the layer."""
     calls = {"K4": 0, "K3": 0}
 
     def spy(key, fn):
@@ -172,8 +173,8 @@ def _spy_depthwise(monkeypatch):
             return fn(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(layers, "aspp_depthwise3x3_multi", spy("K4", layers.aspp_depthwise3x3_multi))
-    monkeypatch.setattr(layers, "depthwise3x3_dilated", spy("K3", layers.depthwise3x3_dilated))
+    monkeypatch.setattr(dw_kernels, "_k4", spy("K4", dw_kernels._k4))
+    monkeypatch.setattr(dw_kernels, "_k3", spy("K3", dw_kernels._k3))
     return calls
 
 

@@ -11,6 +11,7 @@ flags:
                                                               [--rate R [--decode-ahead]]
     python -m vision_semantic_segmentation_tpu_torch export   input.{hkl,pkl,bag} [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch eval     --maps dir --gt dir
+    python -m vision_semantic_segmentation_tpu_torch train    --cfg train.yaml [KEY VALUE ...]
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
@@ -19,15 +20,18 @@ per segmented frame (a planar ``MAPPING.DEPTH_METHOD`` runs no K2).  The
 two-node dataflow runs the network in ``MODEL.COMPUTE_DTYPE`` (bf16 by
 default); every fused path (``--fused``, with or without ``--rate``) runs
 it in the fused pipeline's bf16, as the JAX package does.  Not ported yet:
-``convert``, ``video`` and ``profile`` (ROADMAP queue 1 item 3), ``train``
-(item 4), ``compile``, ``quantize`` and ``autotune`` (item 5), and
-``replay --frame-parallel`` (item 6).
+``convert``, ``video`` and ``profile`` (ROADMAP queue 1 item 3),
+``compile``, ``quantize`` and ``autotune`` (item 5), and ``replay
+--frame-parallel`` (item 6).  ``train`` trains on one device
+(``train/trainer.py``); ASPP's depthwise convs run K4 forward and K3 dgrad
+there.
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
 :class:`~.runtime.async_bus.PlaybackReport` (``--rate``) or the
 :class:`~.runtime.node.MappingNode` (the two-node dataflow), ``export`` the
-frames written, ``eval`` the scores.
+frames written, ``eval`` the scores, ``train`` the
+:class:`~.train.trainer.Trainer`.
 """
 from __future__ import annotations
 
@@ -190,6 +194,23 @@ def _fused_pipeline(cfg, bag_path: str, confidence: bool = False, device="cuda")
     return FusedRun(grid, color_map, n_fused, time.perf_counter() - clock["first_frame"])
 
 
+def cmd_train(args):
+    """Train the segmentation network (JAX ``cmd_train``, ref train.py:163)."""
+    from .config import get_train_cfg_defaults, resolve_output_dir
+    from .train.trainer import train
+    from .utils.logger import setup_logger
+
+    cfg = get_train_cfg_defaults()
+    if args.cfg:
+        cfg.merge_from_file(args.cfg)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    cfg.freeze()
+    output_dir = resolve_output_dir(cfg.OUTPUT_DIR, cfg.TASK_NAME)
+    logger = setup_logger("train", output_dir)
+    return train(cfg, output_dir=output_dir, logger=logger, device=args.device)
+
+
 def cmd_eval(args):
     from .evaluation.map_eval import MapEvaluator
 
@@ -253,6 +274,13 @@ def main(argv=None):
                         "overlapping node compute instead of on the pacing thread (the "
                         "production feed for compressed bags on a small host)")
     p.set_defaults(fn=cmd_pipeline)
+
+    p = sub.add_parser("train", help="train the segmentation network")
+    p.add_argument("--cfg", default="", metavar="FILE")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the network trains (default cuda; raises without a card)")
+    p.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="score generated maps against ground truth")
     p.add_argument("--maps", default="./global_maps")

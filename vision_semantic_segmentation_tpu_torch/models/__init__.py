@@ -1,21 +1,30 @@
 from .aspp import ASPP
-from .build import Dummy, build_model, init_weights_
+from .build import Dummy, build_model, build_train_model, init_weights_
 from .convert import flax_to_state_dict
 from .decoder import Decoder
 from .deeplab import DeepLabV3Plus, deeplab_from_cfg
-from .layers import ConvBNReLU, DepthwiseConv2d, DepthwiseSeparableConv, same_padding
+from .loss import CrossEntropyLoss, cross_entropy_loss
+from .metrics import MeanIOU, confusion_matrix_update, miou_from_confusion
+from .layers import BatchNorm2d, ConvBNReLU, DepthwiseConv2d, DepthwiseSeparableConv, same_padding
 from .resnet import ResNetBackbone, __all_backbones__, build_backbone
 
 __all__ = [
     "ASPP",
     "Dummy",
     "build_model",
+    "build_train_model",
     "init_weights_",
     "flax_to_state_dict",
     "Decoder",
     "DeepLabV3Plus",
     "deeplab_from_cfg",
+    "BatchNorm2d",
     "ConvBNReLU",
+    "CrossEntropyLoss",
+    "cross_entropy_loss",
+    "MeanIOU",
+    "confusion_matrix_update",
+    "miou_from_confusion",
     "DepthwiseConv2d",
     "DepthwiseSeparableConv",
     "same_padding",

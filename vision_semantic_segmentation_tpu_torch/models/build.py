@@ -3,15 +3,18 @@
 Port of ``vision_semantic_segmentation_tpu/models/build.py`` for DeepLabV3+
 and the Dummy model (Xception waits).  ``build_model`` returns the network
 alone, in eval mode, on ``device`` (CUDA unless the caller asks for the
-CPU), in ``dtype`` and channels-last memory.  Weights are drawn from
-``generator`` (He-normal fan-out convs, identity BatchNorm — the JAX
-package's initialisers), or load afterwards with
-``load_state_dict(strict=True)`` (see ``models/convert.py``).  The loss and
-metric objects of the JAX registry are not ported yet.
+CPU), in ``dtype`` and channels-last memory, for the serving paths.
+``build_train_model`` returns ``(model, loss_fn, train_metric,
+val_metric)`` as the JAX registry does, the model in f32 and in training
+mode (``TRAIN.REMAT_BACKBONE`` recomputes each backbone block in the
+backward pass).  Weights are drawn from ``generator`` (He-normal fan-out
+convs, identity BatchNorm — the JAX package's initialisers), or load
+afterwards with ``load_state_dict(strict=True)`` (see
+``models/convert.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from .deeplab import deeplab_from_cfg
+from .loss import CrossEntropyLoss
+from .metrics import MeanIOU
 from .resize import resize_nchw
 
 
@@ -71,3 +76,16 @@ def build_model(
     dev = resolve_device(device)
     model = init_weights_(_MODEL_BUILDERS[cfg.MODEL.TYPE](cfg), generator)
     return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
+
+
+def build_train_model(
+    cfg,
+    device: DeviceLike = "cuda",
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[nn.Module, CrossEntropyLoss, MeanIOU, MeanIOU]:
+    """``(model, loss_fn, train_metric, val_metric)`` for ``cfg.MODEL.TYPE``
+    (a train config tree): the model in f32 and training mode, on
+    ``device`` in channels-last memory; the loss ignores label 255."""
+    model = build_model(cfg, dtype=torch.float32, device=device, generator=generator).train()
+    num_classes = cfg.DATASET.NUM_CLASSES
+    return model, CrossEntropyLoss(ignore_index=255), MeanIOU(num_classes), MeanIOU(num_classes)

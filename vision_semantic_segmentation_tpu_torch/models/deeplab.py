@@ -32,12 +32,13 @@ class DeepLabV3Plus(nn.Module):
         decoder_low_level_out_channels: int = 48,
         decoder_refine_channels: Sequence[int] = (256, 256),
         decoder_refine_kernel_size: Sequence[int] = (3, 3),
+        remat_backbone: bool = False,
     ):
         super().__init__()
         dilations = {16: (1, 6, 12, 18), 8: (1, 12, 24, 36)}.get(output_stride)
         if dilations is None:
             raise NotImplementedError(f"output_stride {output_stride}")
-        self.backbone = build_backbone(backbone, output_stride)
+        self.backbone = build_backbone(backbone, output_stride, remat=remat_backbone)
         self.aspp = ASPP(
             self.backbone.out_channels, aspp_out_channels, aspp_atrous_channels,
             aspp_atrous_kernel_size, dilations, aspp_dropout,
@@ -59,7 +60,10 @@ class DeepLabV3Plus(nn.Module):
 
 
 def deeplab_from_cfg(cfg) -> DeepLabV3Plus:
-    """Construct the model from a network config node (demo or train tree)."""
+    """Construct the model from a network config node (demo or train tree).
+
+    ``TRAIN.REMAT_BACKBONE`` exists only in the train tree; the demo tree
+    never remats."""
     backbone = cfg.MODEL.BACKBONE
     if backbone == "resnet":  # reference's deeplab default alias
         backbone = "resnet50"
@@ -74,4 +78,5 @@ def deeplab_from_cfg(cfg) -> DeepLabV3Plus:
         decoder_low_level_out_channels=cfg.MODEL.DECODER.LOW_LEVEL_OUT_CHANNELS,
         decoder_refine_channels=tuple(cfg.MODEL.DECODER.REFINE_CHANNELS),
         decoder_refine_kernel_size=tuple(cfg.MODEL.DECODER.REFINE_KERNEL_SIZE),
+        remat_backbone=bool(getattr(getattr(cfg, "TRAIN", None), "REMAT_BACKBONE", False)),
     )

@@ -18,14 +18,16 @@ TPU-only block-diagonal and tile-diagonal grouped forms are not ported.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+import contextlib
+from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.kernels.depthwise import aspp_depthwise3x3_multi, depthwise3x3_dilated
+from ..ops.kernels.depthwise import DepthwiseBranches
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -50,6 +52,87 @@ def same_padding(kernel_size: IntPair, stride: IntPair, dilation: IntPair):
     return ((int(lo[0]), int(hi[0])), (int(lo[1]), int(hi[1])))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running variance
+    with the biased batch variance, as flax's ``nn.BatchNorm`` does (the JAX
+    package's BatchNorm: momentum 0.9 in flax's sense, eps 1e-5).
+
+    ``nn.BatchNorm2d`` folds in the unbiased variance, n / (n - 1) larger
+    for n values a channel (a factor of 2 at ASPP's pooled 1x1 branch with
+    batch 2).  The fused PyTorch call runs on copies of the running
+    buffers, and the variance is corrected after it: with f the update
+    factor, ``rv = (1 - f) rv_old + f var_unbiased (n - 1) / n``.  Parameter and
+    buffer names are ``nn.BatchNorm2d``'s, so state dicts are unchanged.
+    ``recomputing`` (set by :func:`checkpointed` while the backward pass
+    recomputes a forward) normalises with the batch statistics and leaves
+    the running statistics alone, so a rematerialised step updates them
+    once.
+    """
+
+    recomputing = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        if x.numel() == x.shape[1]:
+            return self._one_value(x)
+        # the fused call updates copies: autograd keeps its inputs, and the
+        # running buffers must not change under it
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        if self.recomputing:  # the same call, its statistics dropped
+            return F.batch_norm(x, mean, var, self.weight, self.bias, True, 0.0, self.eps)
+        f = self._factor()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, f, self.eps)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var - (var - (1.0 - f) * self.running_var) / n)
+        return y
+
+    def _factor(self) -> float:
+        """Count the batch; the update factor (``momentum``, or the
+        cumulative average's 1 / batches when it is None)."""
+        self.num_batches_tracked.add_(1)
+        if self.momentum is None:
+            return 1.0 / float(self.num_batches_tracked)
+        return self.momentum
+
+    def _one_value(self, x: torch.Tensor) -> torch.Tensor:
+        """One value a channel (ASPP's pooled branch at batch 1), which
+        ``F.batch_norm`` refuses in training: flax's batch variance is 0,
+        so the output is the bias."""
+        shape = (1, -1, 1, 1)
+        y = (x - x) * torch.rsqrt(torch.full_like(x, self.eps)) * self.weight.view(shape)
+        y = y + self.bias.view(shape)
+        if not self.recomputing:
+            f = self._factor()
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - f).add_(f * x.reshape(-1).to(self.running_mean.dtype))
+                self.running_var.mul_(1.0 - f)
+        return y
+
+
+def checkpointed(module: nn.Module, fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward pass instead of kept (the
+    JAX package's ``nn.remat`` / ``jax.checkpoint``).  The BatchNorms of
+    ``module`` skip their running-statistics update while recomputing."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+
+    @contextlib.contextmanager
+    def recompute():
+        for m in norms:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.recomputing = False
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
 class DepthwiseConv2d(nn.Conv2d):
     """Depthwise ``nn.Conv2d`` (groups == channels) that runs K3 where it applies."""
 
@@ -70,24 +153,22 @@ class DepthwiseConv2d(nn.Conv2d):
 
 def depthwise_convs(convs: Sequence[DepthwiseConv2d], x: torch.Tensor) -> List[torch.Tensor]:
     """Several depthwise convs that pass ``uses_k3`` over one NCHW
-    (channels-last) input.
+    (channels-last) input, through ``DepthwiseBranches``.
 
-    One conv runs K3; two or more run as one K4 call per frame, which reads
-    ``x`` once for all of them.  Returns one NCHW output per conv.
+    One conv runs K3 per frame; two or more run as one K4 call per frame,
+    which reads ``x`` once for all of them.  The backward is K3 on the
+    flipped taps for dx and an f32 wgrad.  On a CPU tensor every step runs
+    the kernels' plain versions.  Returns one NCHW output per conv.
     """
-    kernels = [c.weight.permute(2, 3, 1, 0) for c in convs]  # (C, 1, 3, 3) -> (3, 3, 1, C)
-    dilations = [c.dilation[0] for c in convs]
-    per_frame = []
-    for xi in x:
-        xi = xi[None].permute(0, 2, 3, 1).contiguous()  # a view for channels-last x
-        if len(convs) == 1:
-            per_frame.append([depthwise3x3_dilated(xi, kernels[0], dilations[0])])
-        else:
-            per_frame.append(aspp_depthwise3x3_multi(xi, kernels, dilations))
+    # (C, 1, 3, 3) -> (3, 3, 1, C) -> (9, C), tap-major
+    w9s = torch.stack([c.weight.permute(2, 3, 1, 0).reshape(9, -1) for c in convs])
+    w9s = w9s.to(torch.promote_types(w9s.dtype, torch.float32))
+    dilations = tuple(c.dilation[0] for c in convs)
+    x = x.permute(0, 2, 3, 1).contiguous()  # no copy for a channels-last x
+    ys = DepthwiseBranches.apply(x, w9s, dilations)
     outs = []
-    for b, conv in enumerate(convs):
-        ys = [frame[b] for frame in per_frame]
-        y = (ys[0] if len(ys) == 1 else torch.cat(ys)).permute(0, 3, 1, 2)
+    for y, conv in zip(ys, convs):
+        y = y.permute(0, 3, 1, 2)
         outs.append(y if conv.bias is None else y + conv.bias.view(1, -1, 1, 1))
     return outs
 
@@ -127,7 +208,7 @@ class ConvBNReLU(nn.Module):
             padding=(t, l) if symmetric else 0, dilation=_pair(dilation),
             groups=groups, bias=not bn,
         )
-        self.bn = nn.BatchNorm2d(features, eps=1e-5) if bn else None
+        self.bn = BatchNorm2d(features, eps=1e-5) if bn else None
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -16,11 +16,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import BatchNorm2d, checkpointed
+
 
 def _downsample(inplanes: int, outplanes: int, stride: int) -> nn.Sequential:
     return nn.Sequential(
         nn.Conv2d(inplanes, outplanes, 1, stride=stride, bias=False),
-        nn.BatchNorm2d(outplanes),
+        BatchNorm2d(outplanes),
     )
 
 
@@ -34,10 +36,10 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation, dilation=dilation,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = _downsample(inplanes, planes, stride) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,12 +63,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=dilation,
                                dilation=dilation, groups=groups, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, planes * self.expansion, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * self.expansion)
+        self.bn3 = BatchNorm2d(planes * self.expansion)
         self.downsample = (
             _downsample(inplanes, planes * self.expansion, stride) if downsample else None
         )
@@ -95,8 +97,13 @@ class ResNetBackbone(nn.Module):
         groups: int = 1,
         width_per_group: int = 64,
         replace_stride_with_dilation: Tuple[bool, bool, bool] = (False, False, False),
+        remat: bool = False,
     ):
         super().__init__()
+        # TRAIN.REMAT_BACKBONE: each residual block's activations are
+        # recomputed in the backward pass (the JAX package's nn.remat per
+        # block); only block boundaries are kept
+        self.remat = remat
         block_cls = Bottleneck if block == "bottleneck" else BasicBlock
         expansion = block_cls.expansion
         self.out_channels = 512 * expansion
@@ -105,7 +112,7 @@ class ResNetBackbone(nn.Module):
         # stem: 7x7/2 conv + BN + ReLU + 3x3/2 max-pool (-inf padding, as
         # flax's max_pool)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
 
         # torchvision _make_layer's stride/dilation bookkeeping: when a stage
@@ -138,9 +145,13 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
-        low = self.layer1(x)
-        feat = self.layer4(self.layer3(self.layer2(low)))
-        return {"feature": feat, "low_feature": low}
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        outs = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = checkpointed(block, block, x) if remat else block(x)
+            outs.append(x)
+        return {"feature": outs[3], "low_feature": outs[0]}
 
 
 # -- family (ref backbone/resnet.py:56-177) -----------------------------------
@@ -159,7 +170,7 @@ _FAMILY = {
 __all_backbones__ = sorted(_FAMILY)
 
 
-def build_backbone(name: str, output_stride: int) -> ResNetBackbone:
+def build_backbone(name: str, output_stride: int, remat: bool = False) -> ResNetBackbone:
     """Backbone dispatcher (ref backbone/build.py:4-22).
 
     output_stride 16 dilates stage 4; output_stride 8 dilates stages 3+4.
@@ -173,4 +184,4 @@ def build_backbone(name: str, output_stride: int) -> ResNetBackbone:
     }.get(output_stride)
     if dilate is None:
         raise NotImplementedError(f"Unsupported output stride {output_stride}")
-    return ResNetBackbone(replace_stride_with_dilation=dilate, **_FAMILY[name])
+    return ResNetBackbone(replace_stride_with_dilation=dilate, remat=remat, **_FAMILY[name])

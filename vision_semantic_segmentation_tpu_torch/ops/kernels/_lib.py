@@ -177,8 +177,9 @@ def uses_plain(kernel: CudaKernel, t: torch.Tensor) -> bool:
 def refuse_grad(kernel: CudaKernel, *tensors: torch.Tensor) -> None:
     """Raise where the kernel route would silently cut the autograd graph.
 
-    The CUDA kernels have no backward yet (it comes with the training
-    slice), and an output filled through ``ctypes`` has no ``grad_fn``.  On
+    A kernel without an ``autograd.Function`` (the column-major probe
+    kernels; K3 and K4 have ``DepthwiseBranches``) has no backward, and an
+    output filled through ``ctypes`` has no ``grad_fn``.  On
     the CPU the plain version is differentiable, so returning such a tensor
     would make the two devices give different gradients.  Wrappers call this
     on the kernel route only.

@@ -25,6 +25,18 @@ branches from it.  :func:`aspp_plan` sizes that launch (tile, halo, channel
 group, threads, shared bytes); the wrapper passes it to the kernel, and the
 CPU tests walk the same plan.
 
+Gradient: :class:`DepthwiseBranches` is the ``torch.autograd.Function`` of
+one or several branches over a batch of frames (the TPU kernels had no
+backward; the JAX package trains through its shifted XLA depthwise).  Its
+forward runs K4 per frame (K3 for one branch).  Stride is 1 and the zero
+padding is d on every side, so dgrad is the same depthwise with the taps
+turned 180 degrees: ``dx = sum_b K3(dy_b, flip(w_b), d_b)``, one K3 launch
+per frame and branch, summed in f32.  wgrad, ``dW_b[t, c] = sum_{n,h,w}
+dy_b * x shifted by tap t``, is plain f32 tensor code in this port
+(:func:`depthwise_wgrad_plain`).  Every step picks kernel or plain version
+by the tensor's device, as the wrappers do, so on the CPU the Function runs
+its formulas on the plain versions.
+
 Note on bf16: the JAX package's default depthwise path (the shifted form,
 ``models/layers.py::ShiftedDepthwiseConv``) accumulates in the compute
 dtype; the port follows the TPU kernel and accumulates in f32, so in bf16
@@ -40,7 +52,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._lib import CudaKernel, ptr, refuse_grad, uses_plain
+from ._lib import CudaKernel, ptr, uses_plain
 
 # K3's C signature, shared by the column-major kernels of depthwise_hoist.py:
 # x, w, y, H, W, C, dilation, dtype, plan, stream
@@ -232,14 +244,21 @@ def _weights9(kernel: torch.Tensor, x: torch.Tensor, dilation: int) -> torch.Ten
     return kernel.reshape(9, c).to(device=x.device, dtype=torch.float32).contiguous()
 
 
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type the sums are taken in: f32, or f64 for an f64 ``x`` (which
+    only the plain versions take)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def depthwise3x3_dilated_plain(x: torch.Tensor, w9: torch.Tensor, dilation: int) -> torch.Tensor:
     """Plain PyTorch version: nine shifted multiply-adds in f32, row-major taps.
 
-    ``x`` is (1, H, W, C); ``w9`` is (9, C) f32 (tap-major).
+    ``x`` is (1, H, W, C); ``w9`` is (9, C) f32 (tap-major).  An f64 ``x``
+    (with f64 weights) is summed in f64.
     """
     d = dilation
     _, h, w, _ = x.shape
-    xp = F.pad(x[0].float(), (0, 0, d, d, d, d))
+    xp = F.pad(x[0].to(_sum_dtype(x)), (0, 0, d, d, d, d))
     acc = None
     for ti in range(3):
         for tj in range(3):
@@ -257,16 +276,35 @@ def depthwise3x3_dilated(x: torch.Tensor, kernel: torch.Tensor, dilation: int) -
         kernel: (3, 3, 1, C) depthwise weights (the JAX package's layout).
         dilation: atrous rate (also the per-side zero padding).
     Returns:
-        (1, H, W, C) in x's dtype; the caller adds any bias.
+        (1, H, W, C) in x's dtype; the caller adds any bias.  On the card the
+        result carries :class:`DepthwiseBranches`'s gradient where x or the
+        kernel needs one; on the CPU, autograd of the plain version.
     """
     _check_input(x)
-    _, h, w, c = x.shape
     w9 = _weights9(kernel, x, dilation)
+    if grad_through_kernels(x, [w9], 1):
+        return DepthwiseBranches.apply(x, w9[None], (dilation,))[0]
+    return _k3(x, w9, dilation)
+
+
+def _k3(x: torch.Tensor, w9: torch.Tensor, dilation: int) -> torch.Tensor:
+    """K3 (or its plain version on the CPU) on one frame, outside autograd."""
     if uses_plain(KERNEL, x):
         return depthwise3x3_dilated_plain(x, w9, dilation)
-    refuse_grad(KERNEL, x, w9)
+    _, h, w, c = x.shape
+    x = x.contiguous()
     plan = depthwise_plan(h, w, c, dilation, x.element_size(), aligned=pointers_aligned(x, w9))
     return launch_depthwise(KERNEL, x, w9, dilation, plan)
+
+
+def _k4(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int]) -> List[torch.Tensor]:
+    """K4 (or its plain version on the CPU) on one frame, outside autograd."""
+    if uses_plain(MULTI_KERNEL, x):
+        return aspp_depthwise3x3_multi_plain(x, w9s, dilations)
+    _, h, w, c = x.shape
+    x = x.contiguous()
+    plan = aspp_plan(h, w, c, dilations, x.element_size(), aligned=x.data_ptr() % 16 == 0)
+    return launch_multi(x, w9s, dilations, plan)
 
 
 def launch_depthwise(
@@ -313,20 +351,17 @@ def aspp_depthwise3x3_multi(
         kernels: one (3, 3, 1, C) depthwise kernel per branch (at most 8).
         dilations: one atrous rate per branch (also its zero padding).
     Returns:
-        A list of (1, H, W, C) outputs in x's dtype, one per branch; on the
-        card they are views of one (n, H, W, C) buffer.
+        A list of (1, H, W, C) outputs in x's dtype, one per branch, with
+        :class:`DepthwiseBranches`'s gradient on the card.
     """
     _check_input(x)
-    _, h, w, c = x.shape
     n = len(dilations)
     if not 1 <= n <= MAX_BRANCHES or len(kernels) != n:
         raise ValueError(f"{len(kernels)} kernels for {n} dilations (1..{MAX_BRANCHES})")
     w9s = torch.stack([_weights9(k, x, d) for k, d in zip(kernels, dilations)])
-    if uses_plain(MULTI_KERNEL, x):
-        return aspp_depthwise3x3_multi_plain(x, w9s, dilations)
-    refuse_grad(MULTI_KERNEL, x, w9s)
-    plan = aspp_plan(h, w, c, dilations, x.element_size(), aligned=x.data_ptr() % 16 == 0)
-    return launch_multi(x, w9s, dilations, plan)
+    if grad_through_kernels(x, [w9s], n):
+        return list(DepthwiseBranches.apply(x, w9s, tuple(dilations)))
+    return _k4(x, w9s, dilations)
 
 
 def launch_multi(
@@ -351,3 +386,77 @@ def launch_multi(
     MULTI_KERNEL.launch(ptr(x), ptr(w9s), ptr(y), h, w, c, n, ctypes.cast(dil, ctypes.c_void_p),
                         _DTYPES[x.dtype], ctypes.cast(args, ctypes.c_void_p))
     return [y[b : b + 1] for b in range(n)]
+
+
+def depthwise_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, dilation: int) -> torch.Tensor:
+    """wgrad of one branch over a batch: ``dW[t, c] = sum_{n,h,w} dy * x``
+    shifted by tap t, in f32 (f64 for an f64 ``x``).  ``x`` and ``dy`` are
+    (B, H, W, C); returns (9, C), tap-major."""
+    d = dilation
+    _, h, w, _ = x.shape
+    xp = F.pad(x.to(_sum_dtype(x)), (0, 0, d, d, d, d))
+    dyf = dy.to(xp.dtype)
+    return torch.stack([
+        (xp[:, ti * d : ti * d + h, tj * d : tj * d + w] * dyf).sum((0, 1, 2))
+        for ti in range(3) for tj in range(3)
+    ])
+
+
+def grad_through_kernels(x: torch.Tensor, weights: Sequence[torch.Tensor], branches: int) -> bool:
+    """Whether a depthwise call on ``x`` takes :class:`DepthwiseBranches`:
+    on the kernel route (a CUDA tensor), where x or a weight needs a gradient."""
+    kernel = KERNEL if branches == 1 else MULTI_KERNEL
+    return (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights))
+            and not uses_plain(kernel, x))
+
+
+class DepthwiseBranches(torch.autograd.Function):
+    """``y_b = depthwise3x3(x, w_b, d_b)`` for every branch b, frame by frame.
+
+    ``apply(x, w9s, dilations)``: x (B, H, W, C) f32 or bf16, w9s (n, 9, C)
+    f32 tap-major, n <= 8 dilations.  Returns n (B, H, W, C) tensors in x's
+    dtype.  Forward: K4 per frame (K3 for n = 1).  Backward: dx by K3 on
+    the flipped taps, one launch per frame and branch, summed over branches
+    in f32 and rounded once to x's dtype; dW by
+    :func:`depthwise_wgrad_plain`, f32.  On a CPU tensor every step runs
+    the plain versions, which also take an f64 ``x`` and sum it in f64
+    (the kernels refuse f64).
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w9s: torch.Tensor, dilations: Tuple[int, ...]):
+        if x.ndim != 4 or not x.dtype.is_floating_point:
+            raise ValueError(f"NHWC float batch expected, got {tuple(x.shape)} {x.dtype}")
+        n = len(dilations)
+        if not 1 <= n <= MAX_BRANCHES or w9s.shape != (n, 9, x.shape[-1]):
+            raise ValueError(f"weights {tuple(w9s.shape)} for {n} dilations of C={x.shape[-1]}")
+        w9s = w9s.to(_sum_dtype(x)).contiguous()
+        outs = [[] for _ in dilations]
+        for i in range(x.shape[0]):
+            frame = x[i : i + 1]
+            ys = [_k3(frame, w9s[0], dilations[0])] if n == 1 else _k4(frame, w9s, dilations)
+            for b, y in enumerate(ys):
+                outs[b].append(y)
+        ctx.save_for_backward(x, w9s)
+        ctx.dilations = tuple(dilations)
+        return tuple(o[0] if len(o) == 1 else torch.cat(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, w9s = ctx.saved_tensors
+        dilations = ctx.dilations
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            flipped = w9s.flip(1).contiguous()  # tap t -> 8 - t: the 180-degree turn
+            dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+            for i in range(x.shape[0]):
+                acc = None
+                for b, d in enumerate(dilations):
+                    term = _k3(dys[b][i : i + 1].to(x.dtype), flipped[b], d)
+                    if len(dilations) > 1:
+                        term = term.to(w9s.dtype)
+                    acc = term if acc is None else acc + term
+                dx[i : i + 1] = acc
+        if ctx.needs_input_grad[1]:
+            dw = torch.stack([depthwise_wgrad_plain(x, dy, d) for dy, d in zip(dys, dilations)])
+        return dx, dw, None

@@ -67,11 +67,15 @@ def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _separable_resize(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    """Apply 1-D resize matrices along the H and W axes of (..., H, W, C) f32."""
+    """Apply 1-D resize matrices along the H and W axes of (..., H, W, C) f32.
+
+    In f32 also under ``torch.autocast`` (bf16 training), as the JAX package
+    resizes in f32 whatever the compute dtype."""
     Mh = torch.from_numpy(mh).to(x.device)
     Mw = torch.from_numpy(mw).to(x.device)
-    x = torch.einsum("oh,...hwc->...owc", Mh, x)
-    return torch.einsum("ow,...hwc->...hoc", Mw, x)
+    with torch.autocast(x.device.type, enabled=False):
+        x = torch.einsum("oh,...hwc->...owc", Mh, x)
+        return torch.einsum("ow,...hwc->...hoc", Mw, x)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -21,9 +21,7 @@ queue 1 item 6).
 from __future__ import annotations
 
 import os.path as osp
-import struct
 import sys
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
@@ -34,6 +32,7 @@ from ..config.defaults import resolve_output_dir
 from ..device import DeviceLike
 from ..mapping.engine import SemanticMappingEngine, getattr_cfg, pad_points
 from ..ops.kernels.render import render_bev_map_fused, unpack_rgba_image
+from ..utils import image_io
 from ..utils.file_io import makedirs
 from ..utils.logger import MyLogger
 from .io import FrameRecord, iter_sequence_files, load_frames, load_reference_dump
@@ -42,26 +41,14 @@ _PARALLEL_REPLAY = "(ROADMAP queue 1 item 6, parallel/)"
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (stdlib only).
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (no OpenCV).
 
     The bytes are the array's channels reversed, which is what
     ``cv2.imwrite(path, array)`` stores: the JAX package hands its RGB array
     to cv2 unchanged (ref mapping.py:340), and ``cv2.imread`` of either file
     returns that array.
     """
-    img = np.ascontiguousarray(np.asarray(rgb, dtype=np.uint8)[..., ::-1])
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        body = kind + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+    image_io.write_png(path, np.asarray(rgb, dtype=np.uint8)[..., ::-1])
 
 
 class StagedWindow(dict):

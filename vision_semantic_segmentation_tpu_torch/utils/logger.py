@@ -1,8 +1,9 @@
-"""Run logger with auto-versioned run directories.
+"""Run loggers.
 
-Own copy of ``vision_semantic_segmentation_tpu/utils/logger.py::MyLogger``
-(ref src/utils/logger.py:11-91): stdout plus a file in a fresh
-``version_N`` directory under ``save_dir``.
+Own copy of ``vision_semantic_segmentation_tpu/utils/logger.py``:
+:class:`MyLogger` (ref src/utils/logger.py:11-91), stdout plus a file in a
+fresh ``version_N`` directory under ``save_dir``, and the training logger
+:func:`setup_logger`, stdout plus a timestamped file in ``save_dir``.
 """
 from __future__ import annotations
 
@@ -70,3 +71,29 @@ class MyLogger:
             if osp.isdir(osp.join(save_dir, d)) and d.startswith("version_")
         ]
         return max(versions) + 1 if versions else 0
+
+
+def setup_logger(name: str, save_dir: str = "", prefix: str = "") -> logging.Logger:
+    """Training logger: stdout + timestamped file in ``save_dir``."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    for handler in list(logger.handlers):
+        handler.close()
+    logger.handlers.clear()
+    logger.propagate = False
+
+    formatter = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
+    ch = logging.StreamHandler(stream=sys.stdout)
+    ch.setFormatter(formatter)
+    logger.addHandler(ch)
+
+    if save_dir:
+        makedirs(save_dir, exist_ok=True)
+        stamp = time.strftime("%m-%d_%H-%M-%S")
+        name_parts = ["log", prefix, stamp, socket.gethostname()]
+        filename = ".".join(p for p in name_parts if p) + ".txt"
+        fh = logging.FileHandler(osp.join(save_dir, filename))
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
+
+    return logger
