@@ -109,6 +109,25 @@ Phases (any failure raises, so the exit code is non-zero):
    ``truth.npy`` with the floors of ``tests/test_e2e_golden.py`` (road 0.88,
    crosswalk 0.92, lane 0.80, mIoU 0.87).
 
+8. The host-side commands at full width (outputs under the git-ignored
+   ``build/chip_smoke_host/``; runs after phase 6 and before phase 7, on
+   phase 3's network).  (a) ``profile_stages`` with phase 3's calibrated
+   weights at 1440x1920, window 8, 2 windows, 2 repeats, ``distortion=
+   'auto'`` (points): launches K4 80 (forward and e2e stages, warm-up
+   windows included), K2 40, K1 0; NULL, forward, fusion and e2e ms and
+   frames/s; then ``profile --window 8 --windows 1 --repeats 1 --json``
+   once on random weights.  (b) ``video`` over phase 3's 8 frames as a
+   1440x1920 MJPG, with a demo YAML naming phase 5's ``weights.pth``: K4 8,
+   8 frames written at 1440x1920, decoded frames equal to the same command
+   under the plain versions; the model FPS and cv2's MJPG encode and
+   decode per frame.  (c) ``convert`` of phase 5's ``weights.pth``: a
+   predictor loaded from the ``.npz`` gives the ``.pth`` predictor's labels
+   on one frame.  (d) The off-path renderers (``mapping/renderer.py``) on
+   phase 3's grid as (H, W, C), and ``stitch_image`` in both modes over
+   three crops of it with shifted homographies: each equal to the same
+   function on a CPU copy (uint8 exactly, floats within 1e-6), with its
+   time on the card.
+
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
 """
@@ -1305,6 +1324,214 @@ def where_time_goes(what: str, step, top: int = 12) -> None:
 
 
 
+# -- phase 8: host-side commands at full width --------------------------------------
+HOST = REPO / "build" / "chip_smoke_host"
+PROFILE = dict(window=WINDOW, n_windows=2, repeats=2)
+
+
+def host_profile(pipeline: FusedFramePipeline, smi: str) -> None:
+    """(a) ``profile_stages`` with phase 3's calibrated weights, then the
+    ``profile`` command once on random weights."""
+    from vision_semantic_segmentation_tpu_torch.runtime.profiling import (
+        format_report,
+        profile_stages,
+    )
+
+    cfg = pipeline.cfg.clone()
+    cfg.OUTPUT_DIR = str(HOST / "out")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    result = profile_stages(cfg, state_dict=pipeline.model.state_dict(), image_hw=IMAGE_HW,
+                            distortion="auto", log=print, device="cuda", **PROFILE)
+    launches = launches_now()
+    # each stage runs its first window untimed, then every window per repeat
+    frames = PROFILE["window"] * (1 + PROFILE["repeats"] * PROFILE["n_windows"])
+    print(f"profile_stages (calibrated weights) on {smi}: null {result['null_ms']} ms, "
+          f"forward {result['forward_ms']} ms (raw {result['forward_ms_raw']}), fusion "
+          f"{result['fusion_ms']} ms, e2e {result['e2e_ms']} ms (raw {result['e2e_ms_raw']}), "
+          f"{result['e2e_fps']} frames/s, warm-up {result['warmup_s']} s; launches {launches}",
+          flush=True)
+    print(f"  {format_report(result)}", flush=True)
+    check_launches("profile_stages", launches, k4=2 * frames, k2=frames, k1=0)
+    if result["distortion"] != "points" or result["device_kind"] != torch.cuda.get_device_name():
+        raise AssertionError(f"profile_stages: {result['distortion']} on {result['device_kind']}")
+    if not all(result[k] > 0 for k in ("null_ms", "forward_ms", "e2e_ms_raw", "e2e_fps")):
+        raise AssertionError(f"profile_stages: a stage did not measure: {result}")
+
+    out = HOST / "profile.json"
+    cli = cli_main(["profile", "--window", str(WINDOW), "--windows", "1", "--repeats", "1",
+                    "--json", str(out)])
+    if json.loads(out.read_text()) != cli or cli["image_hw"] != list(IMAGE_HW):
+        raise AssertionError("profile --json wrote another dict than it returned")
+    print(f"CLI profile (random weights) on {smi}: {cli['e2e_fps']} frames/s, forward "
+          f"{cli['forward_ms']} ms, fusion {cli['fusion_ms']} ms", flush=True)
+
+
+def read_video(path: Path) -> np.ndarray:
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return np.stack(frames) if frames else np.zeros((0,), np.uint8)
+
+
+def host_video(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """(b) ``video`` over phase 3's 8 frames as a 1440x1920 MJPG, with a demo
+    YAML naming phase 5's weights: K4 once a frame, frames equal to the plain
+    run's."""
+    import cv2
+
+    host = frames["image"].cpu().numpy()
+    src = HOST / "drive.avi"
+    writer = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"MJPG"), 12.0,
+                             (IMAGE_HW[1], IMAGE_HW[0]))
+    t0 = time.perf_counter()
+    for image in host:
+        writer.write(np.ascontiguousarray(image[..., ::-1]))
+    writer.release()
+    encode_ms = (time.perf_counter() - t0) / len(host) * 1e3
+    t0 = time.perf_counter()
+    decoded = read_video(src)
+    decode_ms = (time.perf_counter() - t0) / len(host) * 1e3
+    print(f"cv2 MJPG at {IMAGE_HW[0]}x{IMAGE_HW[1]} (host): encode {encode_ms:.2f} ms, "
+          f"decode {decode_ms:.2f} ms a frame", flush=True)
+    if decoded.shape != (WINDOW, *IMAGE_HW, 3):
+        raise AssertionError(f"the MJPG written reads back as {decoded.shape}")
+
+    outs = {}
+    for name in ("video", "video_plain"):
+        cfg = pipeline.cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.clone()
+        cfg.MODEL.WEIGHT = str(CLI / "weights.pth")
+        cfg.OUTPUT_DIR = str(HOST)
+        cfg.OUTPUT_NAME = name
+        yaml = HOST / f"{name}.yaml"
+        yaml.write_text(cfg.dump())
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "video":
+            out = cli_main(["video", "--cfg", str(yaml), "--video", str(src)])
+            launches = launches_now()
+            print(f"CLI video: {WINDOW} frames in {time.perf_counter() - t0:.3f} s (host clock, "
+                  f"decode to written .avi) on {smi}; launches {launches}", flush=True)
+            check_launches("CLI video", launches, k4=WINDOW, k2=0, k1=0)
+        else:
+            with K.plain_versions():
+                out = cli_main(["video", "--cfg", str(yaml), "--video", str(src)])
+        outs[name] = read_video(Path(out))
+    if outs["video"].shape != (WINDOW, *IMAGE_HW, 3):
+        raise AssertionError(f"CLI video wrote {outs['video'].shape}")
+    if not np.array_equal(outs["video"], outs["video_plain"]):
+        raise AssertionError("CLI video: the frames differ from the plain run's")
+    print(f"CLI video: {WINDOW} frames at {IMAGE_HW[0]}x{IMAGE_HW[1]}, decoded frames equal to "
+          "the plain run's", flush=True)
+
+
+def host_convert(pipeline: FusedFramePipeline, frames: dict) -> None:
+    """(c) ``convert`` of phase 5's ``weights.pth``: a predictor loaded from the
+    ``.npz`` segments a frame as one loaded from the ``.pth``."""
+    npz = cli_main(["convert", str(CLI / "weights.pth")])
+    labels = {}
+    for path in (CLI / "weights.pth", Path(npz)):
+        cfg = pipeline.cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.clone()
+        cfg.MODEL.WEIGHT = str(path)
+        labels[path.suffix] = SemanticSegmentation(cfg, device="cuda").labels(frames["image"][0])
+    same = bool(torch.equal(labels[".pth"], labels[".npz"]))
+    print(f"CLI convert: {npz} ({Path(npz).stat().st_size} bytes); labels from the .npz equal "
+          f"the .pth's: {same} ({len(torch.unique(labels['.npz']))} classes)", flush=True)
+    if not same:
+        raise AssertionError("convert: the .npz predictor's labels differ from the .pth's")
+
+
+def host_renderers(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """(d) The off-path renderers and ``stitch_image`` on phase 3's grid (as
+    (H, W, C)) on the card, each against the same function on a CPU copy."""
+    from vision_semantic_segmentation_tpu_torch.mapping import renderer as R
+    from vision_semantic_segmentation_tpu_torch.mapping.stitching import stitch_image
+
+    grid = pipeline.run_window(pipeline.init_grid(), frames).permute(1, 2, 0).contiguous()
+    color_map = R.render_bev_map(grid, LABEL_COLORS)
+    gray3 = color_map[..., :1].expand(-1, -1, 3).contiguous()
+    # three crops of 0.6 of the grid (1200x1200 of 2000x2000); frame i reaches
+    # frame i+1 by a shift, half a pixel off in x for the first, so the
+    # bilinear warp interpolates
+    h, w = grid.shape[:2]
+    size = int(0.6 * min(h, w))
+    corners = [(0, 0), (3 * h // 20, w // 10), (3 * h // 10, w // 5)]
+    crops = [grid[r:r + size, c:c + size] for r, c in corners]
+    shifts = [np.array([[1.0, 0.0, c0 - c1 + (0.5 if i == 0 else 0.0)], [0.0, 1.0, r0 - r1],
+                        [0.0, 0.0, 1.0]])
+              for i, ((r0, c0), (r1, c1)) in enumerate(zip(corners, corners[1:]))]
+    shifts.append(np.eye(3))
+    cases = {
+        "render_bev_map_with_thresholds": (
+            lambda g: R.render_bev_map_with_thresholds(g, LABEL_COLORS), (grid,)),
+        "render_bev_map_with_thresholds (priority)": (
+            lambda g: R.render_bev_map_with_thresholds(
+                g, LABEL_COLORS, priority=[3, 4, 0, 2, 1], thresholds=[0.1, 0.1, 0.5, 0.2, 0.05]),
+            (grid,)),
+        "fill_black": (R.fill_black, (color_map,)),
+        "fill_black_mode": (R.fill_black_mode, (color_map,)),
+        "resume_color": (R.resume_color, (gray3,)),
+        "fill_edge": (R.fill_edge, (color_map,)),
+        "log_odds_to_probability": (R.log_odds_to_probability, (grid,)),
+        "map_layer_images": (R.map_layer_images, (grid,)),
+        "map_layer_images (min-max)": (lambda g: R.map_layer_images(g, normalize=False), (grid,)),
+        "stitch_image (log-odds)": (lambda *c: stitch_image(list(c), shifts), crops),
+        "stitch_image (painter)": (lambda *c: stitch_image(list(c), shifts, log_odds_out=False),
+                                   crops),
+    }
+    times = {}
+    for name, (fn, args) in cases.items():
+        got = fn(*args)
+        want = fn(*[a.cpu() for a in args])
+        got = got.cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} on the card, "
+                                 f"{tuple(want.shape)} {want.dtype} on the CPU")
+        if got.dtype == torch.uint8:
+            ok, err = torch.equal(got, want), int((got != want).sum())
+        else:
+            err = float((got - want).abs().max())
+            ok = err <= 1e-6
+        if not ok:
+            raise AssertionError(f"{name}: the card's result differs from the CPU's ({err})")
+        if not bool((got.float() != 0).any()):
+            raise AssertionError(f"{name}: an empty result")
+        times[name] = cuda_ms(lambda: fn(*args), 5)
+    t0 = time.perf_counter()
+    car = R.add_car_to_map(color_map.cpu().numpy(), np.array([120.0, 100.0]), 0.4, 0.1,
+                           pipeline.cfg.MAPPING.BOUNDARY)
+    car_ms = (time.perf_counter() - t0) * 1e3
+    if not (car == [255, 0, 0]).all(-1).any():
+        raise AssertionError("add_car_to_map painted nothing")
+    print(f"off-path renderers on the card, equal to the CPU (uint8 exactly, floats within "
+          f"1e-6), on {tuple(grid.shape)} and 3 crops of {size}x{size}, {smi}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; add_car_to_map (host) {car_ms:.3f} ms", flush=True)
+
+
+def host_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """Phase 8: ``profile``, ``video`` and ``convert``, and the off-path
+    renderers, at the main path's width."""
+    if not has_module("cv2"):
+        raise RuntimeError("phase 8 needs OpenCV (cv2) for the video command")
+    shutil.rmtree(HOST, ignore_errors=True)
+    HOST.mkdir(parents=True)
+    t0 = time.perf_counter()
+    host_profile(pipeline, smi)
+    host_video(pipeline, frames, smi)
+    host_convert(pipeline, frames)
+    host_renderers(pipeline, frames, smi)
+    print(f"phase 8 (host-side commands) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # -- phase 7: training ------------------------------------------------------------
 TRAIN = REPO / "build" / "chip_smoke_train"
 TRAIN_BATCH = 16
@@ -1766,6 +1993,7 @@ def main() -> None:
     where_time_goes("CLI replay of the pre-segmented .npz (the whole call)", lambda: cli_main([
         "replay", "--cfg", overlay("replay_profiled", weights), "--input-dir",
         str(CLI / "replay_all")]), top=6)
+    host_phase(pipeline, frames, smi)
     del pipeline, frames
     torch.cuda.empty_cache()
     training_phase(smi)

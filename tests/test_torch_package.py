@@ -26,6 +26,8 @@ from vision_semantic_segmentation_tpu_torch.runtime import (
 )
 from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
 from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
+from vision_semantic_segmentation_tpu_torch.runtime.profiling import profile_stages
+from vision_semantic_segmentation_tpu_torch.runtime.video import generate_video
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -106,8 +108,12 @@ def test_config_copy_matches():
     lambda cfg: FusedOnlineNode(cfg, TopicBus(), state_dict={}),
     lambda cfg: run_online(cfg, "drive.bag"),
     lambda cfg: cli_main(["replay", "--input-dir", "logs"]),
+    lambda cfg: profile_stages(cfg),
+    lambda cfg: generate_video(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, "drive.avi", cfg.OUTPUT_DIR),
+    lambda cfg: cli_main(["profile"]),
 ], ids=["pipeline", "replay", "engine", "build_model", "predictor", "segmentation_node",
-        "mapping_node", "fused_online_node", "run_online", "cli"])
+        "mapping_node", "fused_online_node", "run_online", "cli", "profile_stages",
+        "generate_video", "cli_profile"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -12,6 +12,9 @@ flags:
     python -m vision_semantic_segmentation_tpu_torch export   input.{hkl,pkl,bag} [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch eval     --maps dir --gt dir
     python -m vision_semantic_segmentation_tpu_torch train    --cfg train.yaml [KEY VALUE ...]
+    python -m vision_semantic_segmentation_tpu_torch convert  weights.pth|train_dir [--out f.npz]
+    python -m vision_semantic_segmentation_tpu_torch profile  --cfg exp.yaml [--window T] [--json f]
+    python -m vision_semantic_segmentation_tpu_torch video    --cfg demo.yaml --video in.mp4
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
@@ -19,19 +22,22 @@ On the card, replay runs K2 per frame and K1 per map; ``pipeline`` adds K4
 per segmented frame (a planar ``MAPPING.DEPTH_METHOD`` runs no K2).  The
 two-node dataflow runs the network in ``MODEL.COMPUTE_DTYPE`` (bf16 by
 default); every fused path (``--fused``, with or without ``--rate``) runs
-it in the fused pipeline's bf16, as the JAX package does.  Not ported yet:
-``convert``, ``video`` and ``profile`` (ROADMAP queue 1 item 3),
-``compile``, ``quantize`` and ``autotune`` (item 5), and ``replay
---frame-parallel`` (item 6).  ``train`` trains on one device
-(``train/trainer.py``); ASPP's depthwise convs run K4 forward and K3 dgrad
-there.
+it in the fused pipeline's bf16, as the JAX package does.  ``train`` trains
+on one device (``train/trainer.py``); ASPP's depthwise convs run K4 forward
+and K3 dgrad there.  ``profile`` times the fused pipeline's stages
+(``runtime/profiling.py``: K4 in its forward stage, K4 and K2 in its e2e
+stage), ``video`` segments a video file (K4 a frame) and ``convert``
+writes a ``.pth`` as the JAX package's ``.npz`` (host only).  Not ported
+yet: ``compile``, ``quantize`` and ``autotune`` (ROADMAP queue 1 item 5)
+and ``replay --frame-parallel`` (item 6).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
 :class:`~.runtime.async_bus.PlaybackReport` (``--rate``) or the
 :class:`~.runtime.node.MappingNode` (the two-node dataflow), ``export`` the
 frames written, ``eval`` the scores, ``train`` the
-:class:`~.train.trainer.Trainer`.
+:class:`~.train.trainer.Trainer`, ``convert`` the ``.npz`` path,
+``profile`` the result dict and ``video`` the output video path.
 """
 from __future__ import annotations
 
@@ -237,6 +243,56 @@ def cmd_export(args):
     return frames
 
 
+def cmd_convert(args):
+    from .models.convert import convert_pth_to_npz
+
+    out = convert_pth_to_npz(args.pth, args.out)
+    print(f"wrote {out}")
+    return out
+
+
+def cmd_profile(args):
+    """Stage-level timing of the fused pipeline at this config's shapes on
+    this device: NULL-corrected forward / fusion / e2e ms per frame and
+    frames/s (``runtime/profiling.py``; the counterpart of the reference's
+    model_timer, ref core/utils/benchmark.py:17-25)."""
+    import json
+
+    from .runtime.profiling import format_report, profile_stages
+
+    cfg = _load_app_cfg(args.cfg)
+    result = profile_stages(
+        cfg,
+        image_hw=(args.height, args.width),
+        window=args.window,
+        n_windows=args.windows,
+        repeats=args.repeats,
+        camera=args.camera,
+        distortion=args.distortion,
+        confidence_weighting=args.confidence,
+        log=print,
+        device=args.device,
+    )
+    print(format_report(result))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=2)
+        print(f"wrote {args.json}")
+    return result
+
+
+def cmd_video(args):
+    from .config import get_demo_cfg_defaults, resolve_output_dir
+    from .runtime.video import generate_video
+
+    cfg = get_demo_cfg_defaults()
+    if args.cfg:
+        cfg.merge_from_file(args.cfg)
+    output_dir = resolve_output_dir(cfg.OUTPUT_DIR)
+    return generate_video(cfg, args.video, output_dir, output_name=cfg.OUTPUT_NAME,
+                          device=args.device)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="vision_semantic_segmentation_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -288,6 +344,11 @@ def main(argv=None):
     p.add_argument("--latex", action="store_true")
     p.set_defaults(fn=cmd_eval)
 
+    p = sub.add_parser("convert", help="convert a torch .pth checkpoint to .npz")
+    p.add_argument("pth")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_convert)
+
     p = sub.add_parser("export", help="convert a recorded input (.hkl/.pkl/.bag) to .npz")
     p.add_argument("input")
     p.add_argument("--out", default=None)
@@ -295,6 +356,30 @@ def main(argv=None):
     p.add_argument("--pcd-topic", default="/reduced_map")
     p.add_argument("--pose-topic", default="/current_pose")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("profile", help="stage-level timing (forward/fusion/e2e) of the fused "
+                                       "pipeline at this config's shapes on this device")
+    add_cfg_and_device(p)
+    p.add_argument("--camera", default="camera1")
+    p.add_argument("--height", type=int, default=1440)
+    p.add_argument("--width", type=int, default=1920)
+    p.add_argument("--window", type=int, default=16, help="frames per timed window")
+    p.add_argument("--windows", type=int, default=2,
+                   help="distinct timed windows (fresh data each)")
+    p.add_argument("--repeats", type=int, default=3, help="best-of repeats")
+    p.add_argument("--distortion", default="auto", choices=["auto", "none", "points"])
+    p.add_argument("--confidence", action="store_true",
+                   help="profile the confidence-weighted fusion path")
+    p.add_argument("--json", default="", metavar="FILE",
+                   help="also write the result dict as JSON")
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("video", help="segmentation overlay video demo")
+    p.add_argument("--cfg", default="", metavar="FILE")
+    p.add_argument("--video", required=True)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the network runs (default cuda; raises without a card)")
+    p.set_defaults(fn=cmd_video)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -6,7 +6,21 @@ from .engine import (
     pad_points,
     velodyne_to_baselink,
 )
-from .renderer import LABEL_COLORS, apply_filter, render_bev_map
+from .renderer import (
+    FILL_PRIORITY,
+    LABEL_COLORS,
+    add_car_to_map,
+    apply_filter,
+    fill_black,
+    fill_black_mode,
+    fill_edge,
+    log_odds_to_probability,
+    map_layer_images,
+    render_bev_map,
+    render_bev_map_with_thresholds,
+    resume_color,
+)
+from .stitching import stitch_image
 
 __all__ = [
     "ConfusionMatrix",
@@ -16,7 +30,17 @@ __all__ = [
     "SemanticMappingEngine",
     "pad_points",
     "velodyne_to_baselink",
+    "FILL_PRIORITY",
     "LABEL_COLORS",
+    "add_car_to_map",
     "apply_filter",
+    "fill_black",
+    "fill_black_mode",
+    "fill_edge",
+    "log_odds_to_probability",
+    "map_layer_images",
     "render_bev_map",
+    "render_bev_map_with_thresholds",
+    "resume_color",
+    "stitch_image",
 ]

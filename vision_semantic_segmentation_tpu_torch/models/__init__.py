@@ -1,6 +1,14 @@
 from .aspp import ASPP
 from .build import Dummy, build_model, build_train_model, init_weights_
-from .convert import flax_to_state_dict
+from .convert import (
+    convert_pth_to_npz,
+    flax_to_state_dict,
+    load_npz,
+    load_torch_checkpoint,
+    load_weights,
+    save_npz,
+    torch_state_dict_to_flax,
+)
 from .decoder import Decoder
 from .deeplab import DeepLabV3Plus, deeplab_from_cfg
 from .loss import CrossEntropyLoss, cross_entropy_loss
@@ -14,7 +22,13 @@ __all__ = [
     "build_model",
     "build_train_model",
     "init_weights_",
+    "convert_pth_to_npz",
     "flax_to_state_dict",
+    "load_npz",
+    "load_torch_checkpoint",
+    "load_weights",
+    "save_npz",
+    "torch_state_dict_to_flax",
     "Decoder",
     "DeepLabV3Plus",
     "deeplab_from_cfg",

@@ -1,15 +1,27 @@
-"""flax variables -> torch ``state_dict``, and the weight files.
+"""Weights between the port's torch ``state_dict`` and the JAX package's
+flax variables, and the weight files.
 
-Inverse of ``vision_semantic_segmentation_tpu/models/convert.py::
-torch_state_dict_to_flax``.  :func:`load_weights` reads a reference
-``.pth`` checkpoint or the JAX package's flat ``.npz`` archive of flax
-variables (keys ``params/backbone/conv1/kernel``, ...) into a state dict.
-The port's modules use the reference torch
-names, so a reference ``.pth`` loads with ``load_state_dict(strict=True)``
-and a flax tree from the JAX package crosses over exactly.  Leaves may be
-numpy or any array type ``np.asarray`` accepts.
+Port of ``vision_semantic_segmentation_tpu/models/convert.py`` in both
+directions.  The port's modules use the reference torch names, so a
+reference ``.pth`` loads with ``load_state_dict(strict=True)``.
+:func:`load_weights` reads a ``.pth`` checkpoint or the JAX package's flat
+``.npz`` archive of flax variables (keys ``params/backbone/conv1/kernel``,
+...); :func:`convert_pth_to_npz` writes that archive from a reference
+``.pth``, a bare state dict or a training directory of the port's
+``train/checkpoint.py`` (its ``last_checkpoint`` pointer followed), the
+same keys, dtypes and bytes as the JAX package's ``convert`` writes.
+Leaves may be numpy or any array type ``np.asarray`` accepts.
 
-Mapping rules (flax -> torch):
+Mapping rules (torch -> flax, ``torch_state_dict_to_flax``; the JAX
+package's rules, copied):
+  * drop the DataParallel ``module.`` prefix
+  * ``layer1.0.conv1.weight``    -> params/layer1_0/conv1/kernel (OIHW->HWIO)
+  * ``...bn.weight / bias``      -> params/.../bn/scale, bias
+  * ``...bn.running_mean / var`` -> batch_stats/.../bn/mean, var
+  * ``num_batches_tracked``      -> dropped
+  * integer path components are fused into their parent with '_'
+
+Mapping rules (flax -> torch, ``flax_to_state_dict``):
   * params/.../kernel (4-D, HWIO) -> ....weight (OIHW); grouped
     ``(kh, kw, in/g, out)`` and depthwise ``(3, 3, 1, C)`` included
   * params/.../kernel (2-D)       -> ....weight (transposed)
@@ -24,7 +36,8 @@ from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+import os.path as osp
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,17 +107,137 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_npz_variables(path: str) -> Dict[str, Any]:
-    """A flat ``.npz`` of flax variables (``save_npz``'s format) as a nested dict."""
+def _to_numpy(tensor) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor (numpy has no such type) as
+    float32, which holds each bf16 value exactly.  The JAX package's
+    converter refuses bf16; serving saves the port's bf16 networks so."""
+    if hasattr(tensor, "detach"):
+        tensor = tensor.detach().cpu()
+        if tensor.dtype == torch.bfloat16:
+            tensor = tensor.float()
+        return tensor.numpy()
+    return np.asarray(tensor)
+
+
+def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _fuse_indices(parts: Tuple[str, ...]) -> Tuple[str, ...]:
+    """Fuse numeric path components into the preceding name:
+    ``('layer1', '0', 'conv1')`` -> ``('layer1_0', 'conv1')``."""
+    fused = []
+    for p in parts:
+        if p.isdigit() and fused:
+            fused[-1] = f"{fused[-1]}_{p}"
+        else:
+            fused.append(p)
+    return tuple(fused)
+
+
+def torch_state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A torch state dict as ``{'params': ..., 'batch_stats': ...}`` of numpy leaves."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for key, tensor in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        parts = key.split(".")
+        leaf = parts[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        path = _fuse_indices(tuple(parts[:-1]))
+        value = _to_numpy(tensor)
+        if leaf == "weight":
+            if value.ndim == 4:  # conv OIHW -> HWIO (grouped convs keep I = in/groups)
+                _set_path(params, path + ("kernel",), value.transpose(2, 3, 1, 0))
+            elif value.ndim == 2:
+                _set_path(params, path + ("kernel",), value.transpose(1, 0))
+            else:
+                _set_path(params, path + ("scale",), value)  # BatchNorm gamma
+        elif leaf == "bias":
+            _set_path(params, path + ("bias",), value)
+        elif leaf == "running_mean":
+            _set_path(batch_stats, path + ("mean",), value)
+        elif leaf == "running_var":
+            _set_path(batch_stats, path + ("var",), value)
+        else:
+            raise ValueError(f"Unrecognized torch parameter leaf: {key}")
+    return {"params": params, "batch_stats": batch_stats}
+
+
+def _read_state_dict(path: str, model_key: str = "model") -> Mapping[str, Any]:
+    """The model's state dict of a ``.pth``: ``ckpt[model_key]`` of a
+    reference or port training checkpoint (ref semantic_segmentation.py:31-32,
+    checkpoint.py:36-64), or the file itself when it is a bare state dict."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, Mapping) and model_key in ckpt:
+        return ckpt[model_key]
+    return ckpt
+
+
+def load_torch_checkpoint(path: str, model_key: str = "model") -> Dict[str, Any]:
+    """A ``.pth`` checkpoint's model weights as flax variables."""
+    return torch_state_dict_to_flax(_read_state_dict(path, model_key))
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_npz(variables: Mapping[str, Any], path: str) -> None:
+    """A flax variable tree as a flat ``.npz`` archive (keys ``params/...``)."""
+    np.savez(path, **_flatten(variables))
+
+
+def load_npz(path: str) -> Dict[str, Any]:
+    """The flax variable tree of a flat ``.npz`` written by :func:`save_npz`."""
     tree: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = data[key]
+            _set_path(tree, tuple(key.split("/")), data[key])
     return tree
+
+
+def resolve_last_checkpoint(path: str) -> str:
+    """A checkpoint location as a ``.pth`` file.
+
+    A training output directory (the reference's trainer or the port's
+    ``train/checkpoint.py``) holds ``<name>.pth`` files and a
+    ``last_checkpoint`` pointer naming one (ref core/utils/checkpoint.py:
+    102-129); the pointer is followed.  A file path is returned unchanged.
+    """
+    if osp.isdir(path):
+        pointer = osp.join(path, "last_checkpoint")
+        if not osp.exists(pointer):
+            raise FileNotFoundError(f"{path} is a directory without a last_checkpoint pointer")
+        with open(pointer) as f:
+            named = f.read().strip()
+        if not osp.isabs(named):
+            named = osp.join(path, named)
+        return named
+    return path
+
+
+def convert_pth_to_npz(pth_path: str, npz_path: Optional[str] = None) -> str:
+    """Write a ``.pth`` checkpoint (or a training directory's last one) as
+    the JAX package's ``.npz``; returns its path (default: beside the
+    ``.pth``, ``.npz`` for ``.pth``)."""
+    pth_path = resolve_last_checkpoint(pth_path)
+    if npz_path is None:
+        npz_path = osp.splitext(pth_path)[0] + ".npz"
+    save_npz(load_torch_checkpoint(pth_path), npz_path)
+    return npz_path
 
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
@@ -114,8 +247,5 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     semantic_segmentation.py:31-32); a bare state dict loads as it is.
     """
     if path.endswith(".pth"):
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        if isinstance(ckpt, Mapping) and "model" in ckpt:
-            ckpt = ckpt["model"]
-        return dict(ckpt)
-    return flax_to_state_dict(load_npz_variables(path))
+        return dict(_read_state_dict(path))
+    return flax_to_state_dict(load_npz(path))

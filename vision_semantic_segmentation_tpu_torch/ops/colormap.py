@@ -56,8 +56,19 @@ BDD_TRAINID_COLORS = np.array(
 )
 
 
+def load_palette_from_dataset_config(path: str) -> np.ndarray:
+    """The (num_classes, 3) palette of a Mapillary-style config.json.
+
+    The reference reads ``labels[i]['color']`` from the dataset config
+    (ref mapillary_visualization.py:9-33, config/config_19.json).
+    """
+    with open(path) as f:
+        config = json.load(f)
+    return np.array([label["color"] for label in config["labels"]], dtype=np.uint8)
+
+
 def palette_from_cfg(net_cfg) -> np.ndarray:
-    """Label palette selected by the network config.
+    """Label palette selected by the network config (None: Mapillary-19).
 
     The reference's choice: the video demo switches on ``TRAIN_DATASET``
     (ref video_generator.py:24-27, 96-101) and the segmentation node reads
@@ -65,6 +76,8 @@ def palette_from_cfg(net_cfg) -> np.ndarray:
     vision_semantic_segmentation_node.py:62-63).  Falls back to the
     built-in Mapillary-19 palette.
     """
+    if net_cfg is None:
+        return MAPILLARY_19_PALETTE
     train_dataset = str(net_cfg.TRAIN_DATASET) if "TRAIN_DATASET" in net_cfg else ""
     if train_dataset.upper() == "BDD":
         palette = np.zeros((256, 3), dtype=np.uint8)

@@ -9,6 +9,7 @@ from .io import (
 from .node import FusedOnlineNode, MappingNode, SegmentationNode
 from .pipeline import FusedFramePipeline, network_to_channel_table
 from .replay import MappingReplay, write_png
+from .video import generate_video
 
 __all__ = [
     "Message",
@@ -25,5 +26,6 @@ __all__ = [
     "FusedFramePipeline",
     "network_to_channel_table",
     "MappingReplay",
+    "generate_video",
     "write_png",
 ]
