@@ -128,6 +128,31 @@ Phases (any failure raises, so the exit code is non-zero):
    function on a CPU copy (uint8 exactly, floats within 1e-6), with its
    time on the card.
 
+9. Int8 serving on phase 3's network (outputs under the git-ignored
+   ``build/chip_smoke_int8/``; (a)-(c) and (e) run after phase 8, (d) after
+   phase 7).  (a) Q1 (``csrc/int8_conv.cu``) against its plain version
+   (an f64 conv of the int8 values, then the same f32 epilogue) at each
+   3x3 site shape of the int8 ResNeXt50 at 1440x1920 (int8 out with ReLU,
+   then bf16 out) and at a BasicBlock's two (resnet18 layer2_0: int8 out,
+   bf16 and f32 out), max |err| 0, each timed against the bf16 cuDNN conv
+   of the same site and its bound (bytes / 3.35 TB/s or int8 operations /
+   1,979 TOPS); the kernels line gets a frame's 16 sites summed.  (b)
+   ``main(["quantize", ...])`` over phase 5's bag with 8 calibration
+   frames: 52 sites in the JAX package's format (tile-diagonal grouped
+   kernels), no launch (calibration runs the float backbone alone).  (c) The
+   two-node dataflow with ``MODEL.QPACK`` naming that qpack over phase 4's
+   8 frames: launches K4 8, Q1 128, K2 8, K1 1; grid and map against the
+   same run on the plain path; frames/s; the int8 forward against the bf16
+   one on one frame (CUDA events), their label agreement (reported) beside
+   a witness (the same agreement with the network in f32, calibrated in
+   f32, and the float path's bf16-vs-f32 agreement, with the logits'
+   relative RMS), and a profiler breakdown of the int8 forward.  (d) Phase 7(d)'s trained
+   resnet18 quantized on 3 of the golden scene's frames at 144x192: labels
+   equal to the f32 float path's on at least 0.97 of the pixels of 9
+   frames.  (e) The C++ cloud decoder on phase 5's bag: equal to the numpy
+   decoder, ms a cloud for both, and run (``native_io.calls``).
+
+A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
 """
@@ -590,13 +615,13 @@ def print_variants(table: dict) -> None:
 
 
 def check_launches(what: str, launches: dict, k4: int = WINDOW, k2: int = WINDOW,
-                   k1: int = 1) -> None:
+                   k1: int = 1, q1: int = 0) -> None:
     """One window of the serving paths: by default one K4 forward and one K2
-    fold per frame, one K1 finalize; K3 and the probe kernels stay off the
-    path."""
+    fold per frame, one K1 finalize; K3, the probe kernels and Q1 (the int8
+    backbone's, phase 9) stay off the path."""
     expected = {k.name: 0 for k in K.kernels()}
     expected.update({"aspp_depthwise3x3_multi": k4, "evidence_fold_add": k2,
-                     "render_bev_map_fused": k1})
+                     "render_bev_map_fused": k1, "int8_conv3x3": q1})
     if launches != expected:
         raise AssertionError(f"{what}: launch counts {launches} != expected {expected}")
 
@@ -1797,8 +1822,9 @@ def serve_trained(weights: Path, smi: str) -> None:
         raise AssertionError("serving the trained weights failed")
 
 
-def golden_phase(smi: str) -> None:
-    """(d) the golden scene trained on the card, mapped and scored."""
+def golden_phase(smi: str):
+    """(d) the golden scene trained on the card, mapped and scored.  Returns
+    the trained weights and the scene's frames."""
     from concurrent.futures import ThreadPoolExecutor
 
     root = TRAIN / "golden"
@@ -1848,18 +1874,308 @@ def golden_phase(smi: str) -> None:
     if not (iou["road"] >= 0.88 and iou["crosswalk"] >= 0.92 and iou["lane"] >= 0.80
             and result["miou"] >= 0.87):
         raise AssertionError(f"golden map under its floors: {result}")
+    return weights, images
 
 
-def training_phase(smi: str) -> None:
-    """Phase 7: (a) gradients, (b) training, (c) serving, (d) the golden scene."""
+def training_phase(smi: str):
+    """Phase 7: (a) gradients, (b) training, (c) serving, (d) the golden
+    scene.  Returns the golden segmenter's weights and the scene's frames."""
     if TRAIN.exists():
         shutil.rmtree(TRAIN)
     t0 = time.perf_counter()
     grad_checks(smi)
     weights = train_phase(smi)
     serve_trained(weights, smi)
-    golden_phase(smi)
+    golden = golden_phase(smi)
     print(f"phase 7 (training) {time.perf_counter() - t0:.1f} s", flush=True)
+    return golden
+
+
+# -- phase 9: int8 serving ------------------------------------------------------------
+INT8 = REPO / "build" / "chip_smoke_int8"
+INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 on the tensor cores
+# the 3x3 sites of the int8 ResNeXt50-32x4d OS8 at 1440x1920, one a block:
+# (H, W, C) of the input, stride, dilation, sites a frame
+Q1_SITES = [
+    ((360, 480, 128), 1, 1, 3),   # layer1
+    ((360, 480, 256), 2, 1, 1),   # layer2_0
+    ((180, 240, 256), 1, 1, 3),   # layer2_1-3
+    ((180, 240, 512), 1, 1, 1),   # layer3_0
+    ((180, 240, 512), 1, 2, 5),   # layer3_1-5
+    ((180, 240, 1024), 1, 2, 1),  # layer4_0
+    ((180, 240, 1024), 1, 4, 2),  # layer4_1-2
+]
+# a BasicBlock's (resnet18 OS8 at 1440x1920, layer2_0): its strided conv1
+# and its conv2; (H, W, Cin), Cout, stride, dilation, output kinds
+Q1_BASIC = [
+    ((360, 480, 64), 128, 2, 1, [(torch.int8, True), (torch.int8, False)]),
+    ((180, 240, 128), 128, 1, 1, [(torch.bfloat16, False), (torch.float32, True)]),
+]
+Q1_KINDS = [(torch.int8, True), (torch.bfloat16, False)]  # a ResNeXt site, then a float out
+
+
+def q1_work(x, w, stride: int, dilation: int, out_itemsize: int):
+    """(bytes, int8 operations) of one Q1 call: each input, weight and output
+    byte once and the two epilogue vectors; two operations a multiply-add,
+    over the taps that land inside the image."""
+    n, h, wd, _ = x.shape
+    cout, _, _, cg = w.shape
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1  # padding = dilation
+
+    def inside(size, osize):  # (output, tap) pairs inside the image along one axis
+        pos = np.arange(osize)[:, None] * stride - dilation + np.arange(3)[None] * dilation
+        return int(((pos >= 0) & (pos < size)).sum())
+
+    ops = 2 * n * cout * cg * inside(h, ho) * inside(wd, wo)
+    return x.numel() + w.numel() + n * ho * wo * cout * out_itemsize + 8 * cout, ops
+
+
+def q1_site(gen, hwc, cout: int, stride: int, dilation: int, groups: int, kinds) -> dict:
+    """Q1 against its plain version at one site shape, for each output kind
+    (the first one timed), with the bf16 cuDNN conv of the same site."""
+    from vision_semantic_segmentation_tpu_torch.ops.kernels import int8_conv
+
+    h, w, c = hwc
+    cg = c // groups
+    x = torch.randint(0, 128, (1, h, w, c), generator=gen, device="cuda", dtype=torch.int8)
+    wt = torch.randint(-127, 128, (cout, 3, 3, cg), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    spread = 3.0 * (9 * cg) ** 0.5 * 73.3 * 73.3  # three standard deviations of a sum
+    jitter = torch.rand(cout, generator=gen, device="cuda") + 0.5
+    scales = {torch.int8: (127.0 / spread * jitter, torch.rand(cout, generator=gen, device="cuda") * 40 - 20),
+              "float": (4.0 / spread * jitter, torch.rand(cout, generator=gen, device="cuda") * 2 - 1)}
+    acc = int8_conv.int8_conv3x3_acc_plain(x, wt, stride, dilation, dilation, groups)
+    errs = []
+    for dtype, relu in kinds:
+        scale, shift = scales[torch.int8 if dtype == torch.int8 else "float"]
+        got = int8_conv.int8_conv3x3(x, wt, scale, shift, stride, dilation, dilation, groups,
+                                     dtype, relu)
+        ref = int8_conv.epilogue(acc, scale, shift, dtype, relu)
+        torch.cuda.synchronize()
+        errs.append(float((got.float() - ref.float()).abs().max()))
+    dtype, relu = kinds[0]
+    scale, shift = scales[torch.int8 if dtype == torch.int8 else "float"]
+    args = (x, wt, scale, shift, stride, dilation, dilation, groups, dtype, relu)
+    ms = cuda_ms(lambda: int8_conv.int8_conv3x3(*args), 20)
+    plain_ms = cuda_ms(lambda: int8_conv.int8_conv3x3_plain(*args), 1)
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, dilation, dilation, groups), 20)
+    nbytes, ops = q1_work(x, wt, stride, dilation, torch.empty((), dtype=dtype).element_size())
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+    print(f"  Q1 {tuple(x.shape)} -> {cout}, groups {groups}, stride {stride}, dilation "
+          f"{dilation}, {[(str(d).split('.')[-1], r) for d, r in kinds]}: max |err| {errs} vs "
+          f"plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bf16 cuDNN {cudnn_ms:.4f} ms), bound "
+          f"{bound_ms * 1e3:.1f} us, {bound_ms / ms:.1%} of the bound", flush=True)
+    return dict(err=max(errs), ms=ms, plain_ms=plain_ms, cudnn_ms=cudnn_ms, bytes=nbytes, ops=ops)
+
+
+def check_int8_conv(smi: str) -> dict:
+    """(a) Q1 against its plain version at each 3x3 site shape of the int8
+    ResNeXt50 at 1440x1920 and at a BasicBlock's two; the kernels line gets
+    a frame's 16 sites summed."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    total = dict(err=0.0, ms=0.0, plain_ms=0.0, cudnn_ms=0.0, bytes=0, ops=0)
+    print(f"phase 9(a) Q1 on {smi}:", flush=True)
+    for hwc, stride, d, count in Q1_SITES:
+        r = q1_site(gen, hwc, hwc[2], stride, d, 32, Q1_KINDS)
+        total["err"] = max(total["err"], r["err"])
+        for k in ("ms", "plain_ms", "cudnn_ms", "bytes", "ops"):
+            total[k] += count * r[k]
+    for hwc, cout, stride, d, kinds in Q1_BASIC:
+        total["err"] = max(total["err"], q1_site(gen, hwc, cout, stride, d, 1, kinds)["err"])
+    b_bytes, b_ops = total["bytes"] / HBM_BYTES_PER_S * 1e3, total["ops"] / INT8_OPS_PER_S * 1e3
+    b_ms, b_by = (b_bytes, "bytes") if b_bytes >= b_ops else (b_ops, "operations")
+    print(f"kernel int8_conv3x3 (a frame's 16 sites): max_abs_err {total['err']} kernel "
+          f"{total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms, bf16 cuDNN grouped convs "
+          f"{total['cudnn_ms']:.4f} ms, bound {b_ms * 1e3:.1f} us ({b_by}; bytes "
+          f"{b_bytes * 1e3:.1f} us, int8 operations {b_ops * 1e3:.1f} us), {b_ms / total['ms']:.1%} "
+          f"of the bound", flush=True)
+    if total["err"] != 0:
+        raise AssertionError(f"Q1 differs from its plain version by {total['err']}")
+    return {
+        "name": "int8_conv3x3", "route": "cuda",
+        "source": "vision_semantic_segmentation_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "vision_semantic_segmentation_tpu/models/quant.py:385", "launches": 0,
+        "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def int8_quantize(weights: Path, smi: str) -> Path:
+    """(b) ``quantize`` over phase 5's recorded bag, 8 calibration frames:
+    the qpack in the JAX package's format."""
+    shutil.rmtree(INT8, ignore_errors=True)
+    INT8.mkdir(parents=True)
+    out = INT8 / "qpack.npz"
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["quantize", "--cfg", overlay("quantize", weights), "--calib",
+              str(CLI / "main_window.bag"), "--frames", str(WINDOW), "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    check_launches("quantize (calibration runs the float backbone alone)", launches, k4=0, k2=0,
+                   k1=0)
+    with np.load(out) as z:
+        arrays = {k: z[k] for k in z.files}
+    sites = sorted({k.rsplit("|", 1)[0] for k in arrays})
+    bad = []
+    for site in sites:
+        fields = {f: arrays[f"{site}|{f}"] for f in ("w_q", "w_scale", "bn_scale", "bn_bias",
+                                                     "in_scale") if f"{site}|{f}" in arrays}
+        emits = site.endswith(("conv1", "conv2"))
+        want_w = 5 if site.endswith("conv2") else 4
+        if (len(fields) != 5 or fields["w_q"].dtype != np.int8 or fields["w_q"].ndim != want_w
+                or any(fields[f].dtype != np.float32 for f in fields if f != "w_q")
+                or fields["in_scale"].shape != () or (f"{site}|out_scale" in arrays) != emits):
+            bad.append(site)
+    tiles = {s.split("_")[0]: arrays[f"{s}|w_q"].shape for s in sites if s.endswith("_0/conv2")}
+    print(f"phase 9(b) quantize over the .bag ({WINDOW} calibration frames) on {smi}: "
+          f"{seconds:.3f} s, {out.stat().st_size} bytes, {len(sites)} sites, {len(arrays)} "
+          f"arrays; grouped kernels (tile-diagonal) {tiles}; launches {launches}", flush=True)
+    if len(sites) != 52 or bad:
+        raise AssertionError(f"quantize: {len(sites)} sites (52 expected), malformed {bad}")
+    return out
+
+
+def int8_online(pipeline: FusedFramePipeline, qpack: Path, smi: str) -> dict:
+    """(c) The two-node dataflow serving the qpack over phase 4's 8 frames,
+    against the same run on the plain path; the int8 forward against the
+    bf16 one on one frame.  Returns the launch counts."""
+    cfg = online_cfg()
+    net_cfg = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    state = pipeline.model.state_dict()
+    feed = make_online_feed(seed=200)
+
+    def predictor(qpack_path):
+        net_cfg.MODEL.QPACK = str(qpack_path)
+        return SemanticSegmentation(net_cfg, state_dict=state, compute_dtype=torch.bfloat16,
+                                    device="cuda")
+
+    def two_node(bus):
+        SegmentationNode(cfg, bus, predictor=predictor(qpack))
+        return MappingNode(cfg, bus, device="cuda")
+
+    what = "phase 9(c) online two-node, int8 (MODEL.QPACK)"
+    online_run(what + " warm-up", two_node, feed, smi)
+    grid, color_map, launches = online_run(what, two_node, feed, smi)
+    check_launches(what, launches, q1=16 * WINDOW)
+    with K.plain_versions():
+        grid_plain, map_plain, _ = online_run(what + " (plain)", two_node, feed, smi)
+    compare_with_plain(what, grid, color_map, grid_plain, map_plain)
+
+    frame = torch.from_numpy(feed[0]["image"]).cuda()
+    q, f = predictor(qpack), predictor("")
+    int8_ms = cuda_ms(lambda: q.logits(frame), 10)
+    bf16_ms = cuda_ms(lambda: f.logits(frame), 10)
+    agree = float((q.labels(frame) == f.labels(frame)).float().mean())
+    print(f"  int8 forward {int8_ms:.3f} ms against bf16 {bf16_ms:.3f} ms (CUDA events, one "
+          f"1440x1920 frame, ResNeXt50 OS8) on {smi}; labels equal to the bf16 float path's on "
+          f"{agree:.4f} of the pixels (seeded weights: reported, not held)", flush=True)
+    int8_witness(q, f, net_cfg, state, frame, smi)
+    where_time_goes("one int8 forward (1440x1920, ResNeXt50 OS8, the frame on the card)",
+                    lambda: q.logits(frame), top=10)
+    return launches
+
+
+def int8_witness(q, f, net_cfg, state, frame, smi: str) -> None:
+    """Beside the bf16 int8-vs-float label agreement: the same in f32 (the
+    network in f32, calibrated in f32 on the same 8 frames of the bag), and
+    the float path's own bf16-vs-f32 agreement, with each pair's relative
+    RMS of the logits.  A seeded random network's labels move under any
+    small change (tests/test_torch_quant_resnext.py reads the same in the
+    JAX package); reported, not held."""
+    from vision_semantic_segmentation_tpu_torch.runtime.bag_adapter import bag_to_frames
+
+    def compare(a, b):
+        a, b = a.float(), b.float()
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        return agree, float(((a - b).square().mean() / b.square().mean()).sqrt())
+
+    t0 = time.perf_counter()
+    net_cfg.MODEL.QPACK = ""
+    f32 = SemanticSegmentation(net_cfg, state_dict=state, compute_dtype=torch.float32,
+                               device="cuda")
+    float32 = f32.logits(frame)
+    f32.quantize([r.semantic_image for r in bag_to_frames(str(CLI / "main_window.bag"))])
+    pairs = {"int8 vs float, bf16": (q.logits(frame), f.logits(frame)),
+             "int8 vs float, f32": (f32.logits(frame), float32),
+             "float bf16 vs float f32": (f.logits(frame), float32)}
+    if not all(bool(torch.isfinite(a).all()) for pair in pairs.values() for a in pair):
+        raise AssertionError("int8 witness: logits not finite")
+    readings = {k: compare(*v) for k, v in pairs.items()}
+    print(f"  witness on {smi} (one 1440x1920 frame; labels equal, relative RMS of the logits): "
+          + "; ".join(f"{k} {a:.4f}, {r:.4f}" for k, (a, r) in readings.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def native_decoder(smi: str) -> None:
+    """(e) The C++ cloud decoder on phase 5's bag against the numpy decoder."""
+    from vision_semantic_segmentation_tpu_torch.runtime import native_io
+
+    if not native_io.native_available():
+        raise AssertionError(f"the native PointCloud2 decoder did not build: {native_io._failure}")
+    clouds = [m.message for m in rosbag.RosbagReader(str(CLI / "main_window.bag")).read_messages()
+              if isinstance(m.message, rosbag.PointCloud2Msg)]
+
+    def numpy_decode(c):
+        by = {f.name: f for f in c.fields}
+        fields = [by[k] for k in ("x", "y", "z", "intensity")]
+        return native_io._numpy_decode(c.data, c.height * c.width, c.point_step,
+                                       [f.offset for f in fields], [7] * 4, False)
+
+    times = {"native": [], "numpy": []}
+    before = native_io.calls["native"]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native = [c.xyzi() for c in clouds]
+        times["native"].append((time.perf_counter() - t0) / len(clouds) * 1e3)
+        t0 = time.perf_counter()
+        plain = [numpy_decode(c) for c in clouds]
+        times["numpy"].append((time.perf_counter() - t0) / len(clouds) * 1e3)
+    used = native_io.calls["native"] - before
+    equal = all(np.array_equal(a, b) for a, b in zip(native, plain))
+    print(f"phase 9(e) native PointCloud2 decoder on {smi}'s host: {len(clouds)} clouds of "
+          f"{native[0].shape[1]} points, {min(times['native']):.3f} ms a cloud against numpy's "
+          f"{min(times['numpy']):.3f} ms (best of 3, host clock); equal {equal}; native decodes "
+          f"{used}, in this run so far {native_io.calls}", flush=True)
+    if not equal or used != 3 * len(clouds):
+        raise AssertionError("the native decoder differs from numpy's or did not run")
+
+
+def int8_phase(pipeline: FusedFramePipeline, smi: str) -> dict:
+    """Phase 9 (a), (b), (c), (e) on phase 3's network and phase 5's
+    recordings; returns Q1's kernels-line entry with (c)'s launches."""
+    t0 = time.perf_counter()
+    q1 = check_int8_conv(smi)
+    qpack = int8_quantize(CLI / "weights.pth", smi)
+    q1["launches"] = int8_online(pipeline, qpack, smi)["int8_conv3x3"]
+    native_decoder(smi)
+    print(f"phase 9 (int8 serving, (a)-(c), (e)) {time.perf_counter() - t0:.1f} s", flush=True)
+    return q1
+
+
+def int8_golden(weights: Path, images: list, smi: str) -> None:
+    """(d) Phase 7(d)'s trained resnet18 quantized on 3 of its frames at
+    144x192: labels equal to the f32 float path's on at least 0.97 of the
+    pixels (the floor of the JAX package's tests/test_e2e_golden.py)."""
+    t0 = time.perf_counter()
+    net = scene.scene_network_cfg(str(weights)).VISION_SEM_SEG.SEM_SEG_NETWORK
+    seg = SemanticSegmentation(net, compute_dtype="float32", device="cuda")
+    frames = [resize_area(torch.from_numpy(im).cuda(), (144, 192)).cpu().numpy()
+              for im in images[::10]]
+    refs = [seg.segmentation(f, upsample_pred=True) for f in frames]
+    K.reset_launch_counts()
+    seg.quantize(frames[:3])
+    agree = float(np.mean([(seg.segmentation(f, upsample_pred=True) == r).mean()
+                           for f, r in zip(frames, refs)]))
+    launches = launches_now()
+    print(f"phase 9(d) golden scene, int8 resnet18 OS16 (calibrated on 3 of {len(frames)} "
+          f"frames at 144x192) on {smi}: labels equal to the f32 float path's on {agree:.4f} "
+          f"of the pixels (floor 0.97); launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if agree < 0.97 or launches["int8_conv3x3"] != 16 * len(frames):
+        raise AssertionError(f"golden int8: agreement {agree}, launches {launches}")
 
 
 def sweep(smi: str) -> None:
@@ -1920,7 +2236,13 @@ def sweep(smi: str) -> None:
         print(f"  K1 strip {strip}: {ms:.4f} ms (C entry point) equal {same}", flush=True)
 
 
+def clock(t0: float, what: str) -> None:
+    """Where the script's time goes: seconds since it started, per phase."""
+    print(f"clock: {what} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
     smi = smi_line()
@@ -1932,6 +2254,7 @@ def main() -> None:
     t0 = time.perf_counter()
     seconds = K.build_all()
     print(f"kernel build {time.perf_counter() - t0:.1f} s {seconds}", flush=True)
+    clock(start, "phase 1 (set-up and kernel build)")
     for k in K.kernels():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1952,10 +2275,14 @@ def main() -> None:
     del inputs
     check_single_branch_aspp()
     print_variants(table)
+    clock(start, "phase 2 (kernels against their plain versions)")
     pipeline, frames = main_path(entries, smi)
+    clock(start, "phase 3 (main path)")
     online_phase(pipeline, frames, smi)
     planar_phase(pipeline, smi)
+    clock(start, "phase 4 (online and planar)")
     cli_phase(pipeline, frames, smi)
+    clock(start, "phase 5 (command line)")
 
     args = [frames[k][1] for k in ("image", "pcd", "valid", "position", "quaternion")]
     grid = pipeline.init_grid()
@@ -1993,10 +2320,17 @@ def main() -> None:
     where_time_goes("CLI replay of the pre-segmented .npz (the whole call)", lambda: cli_main([
         "replay", "--cfg", overlay("replay_profiled", weights), "--input-dir",
         str(CLI / "replay_all")]), top=6)
+    clock(start, "phase 6 (where the time goes)")
     host_phase(pipeline, frames, smi)
+    clock(start, "phase 8 (host-side commands)")
+    entries.append(int8_phase(pipeline, smi))
+    clock(start, "phase 9 (a)-(c), (e) (int8 serving)")
     del pipeline, frames
     torch.cuda.empty_cache()
-    training_phase(smi)
+    golden = training_phase(smi)
+    clock(start, "phase 7 (training)")
+    int8_golden(*golden, smi)
+    clock(start, "phase 9(d) (int8 golden scene)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))

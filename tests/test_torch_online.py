@@ -52,7 +52,7 @@ from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.geometry.camera import get_camera
 from vision_semantic_segmentation_tpu_torch.inference import SemanticSegmentation, preprocess_frame
 from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
-from vision_semantic_segmentation_tpu_torch.models import flax_to_state_dict
+from vision_semantic_segmentation_tpu_torch.models import Dummy, flax_to_state_dict
 from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
 from vision_semantic_segmentation_tpu_torch.ops.warp import remap_bilinear, undistort
 from vision_semantic_segmentation_tpu_torch.runtime import (
@@ -394,8 +394,13 @@ def test_nearest_stamp_index_matches():
 
 
 def _qpack(cfg, bus):
-    cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.QPACK = "int8.npz"
-    SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
+    """int8 serving is ported (tests/test_torch_quant_serving.py); a qpack
+    for a network without a ResNet backbone is refused."""
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    net.MODEL.TYPE = "Dummy"
+    net.MODEL.QPACK = "int8.npz"
+    SemanticSegmentation(net, state_dict=Dummy(net.DATASET.NUM_CLASSES).state_dict(),
+                         device="cpu")
 
 
 def _spatial(cfg, bus):
@@ -403,9 +408,11 @@ def _spatial(cfg, bus):
     SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
 
 
-@pytest.mark.parametrize("make", [_qpack, _spatial], ids=["qpack", "spatial_shards"])
-def test_unported_options_refused(make, tmp_path):
+@pytest.mark.parametrize("make,error,match", [(_qpack, ValueError, "DeepLabV3"),
+                                              (_spatial, NotImplementedError, "ROADMAP")],
+                         ids=["qpack", "spatial_shards"])
+def test_unported_options_refused(make, error, match, tmp_path):
     cfg = get_cfg_defaults()
     cfg.OUTPUT_DIR = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         make(cfg, TopicBus())

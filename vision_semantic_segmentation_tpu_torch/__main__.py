@@ -15,6 +15,8 @@ flags:
     python -m vision_semantic_segmentation_tpu_torch convert  weights.pth|train_dir [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch profile  --cfg exp.yaml [--window T] [--json f]
     python -m vision_semantic_segmentation_tpu_torch video    --cfg demo.yaml --video in.mp4
+    python -m vision_semantic_segmentation_tpu_torch quantize --cfg exp.yaml --calib seq.{npz,bag}
+                                                              [--frames 8] [--out qpack.npz]
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
@@ -26,10 +28,14 @@ it in the fused pipeline's bf16, as the JAX package does.  ``train`` trains
 on one device (``train/trainer.py``); ASPP's depthwise convs run K4 forward
 and K3 dgrad there.  ``profile`` times the fused pipeline's stages
 (``runtime/profiling.py``: K4 in its forward stage, K4 and K2 in its e2e
-stage), ``video`` segments a video file (K4 a frame) and ``convert``
-writes a ``.pth`` as the JAX package's ``.npz`` (host only).  Not ported
-yet: ``compile``, ``quantize`` and ``autotune`` (ROADMAP queue 1 item 5)
-and ``replay --frame-parallel`` (item 6).
+stage), ``video`` segments a video file (K4 a frame), ``convert``
+writes a ``.pth`` as the JAX package's ``.npz`` (host only) and
+``quantize`` calibrates and writes an int8 qpack, which the two-node
+dataflow serves when ``VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.QPACK`` names
+it (Q1 on the backbone's 3x3 sites; the fused paths build from the float
+weights and ignore it, as the JAX package's do).  Not ported yet:
+``compile`` and ``autotune`` (ROADMAP queue 1 item 5) and ``replay
+--frame-parallel`` (item 6).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -37,7 +43,8 @@ and ``replay --frame-parallel`` (item 6).
 :class:`~.runtime.node.MappingNode` (the two-node dataflow), ``export`` the
 frames written, ``eval`` the scores, ``train`` the
 :class:`~.train.trainer.Trainer`, ``convert`` the ``.npz`` path,
-``profile`` the result dict and ``video`` the output video path.
+``profile`` the result dict, ``video`` the output video path and
+``quantize`` the qpack.
 """
 from __future__ import annotations
 
@@ -293,6 +300,44 @@ def cmd_video(args):
                           device=args.device)
 
 
+def cmd_quantize(args):
+    """Calibrate and write an int8 PTQ pack for the serving path (JAX
+    ``cmd_quantize``).
+
+    Reads calibration frames from a recorded sequence (.npz or ROS .bag),
+    applies the node's preprocessing (the ``IMAGE_SCALE`` area resize, as
+    the predictor sees frames when serving), calibrates activation scales,
+    quantizes the backbone and writes the qpack (``models/quant.py``).
+    Serve it by setting ``VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.QPACK`` to the
+    output path.
+    """
+    from .inference.predictor import SemanticSegmentation
+    from .models.quant import save_qpack
+    from .ops.resize import resize_area
+
+    cfg = _load_app_cfg(args.cfg)
+    if args.calib.endswith(".bag"):
+        from .runtime.bag_adapter import bag_to_frames
+
+        frames = bag_to_frames(args.calib)
+    else:
+        from .runtime.io import load_frames
+
+        frames = load_frames(args.calib)
+    step = max(1, len(frames) // max(1, args.frames))
+    images = [f.semantic_image for f in frames[::step][: args.frames]]
+    predictor = SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device=args.device)
+    scale = float(cfg.VISION_SEM_SEG.IMAGE_SCALE)
+    if scale < 1.0:  # on the predictor's device, as the node resizes
+        images = [resize_area(torch.as_tensor(np.asarray(img), device=predictor.device),
+                              (int(img.shape[0] * scale), int(img.shape[1] * scale)))
+                  .cpu().numpy() for img in images]
+    predictor.quantize(images)
+    save_qpack(predictor.qpack, args.out)
+    print(f"wrote {args.out} ({len(images)} calibration frames)")
+    return predictor.qpack
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="vision_semantic_segmentation_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -380,6 +425,15 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the network runs (default cuda; raises without a card)")
     p.set_defaults(fn=cmd_video)
+
+    p = sub.add_parser("quantize", help="calibrate + export an int8 PTQ pack (serving)")
+    add_cfg_and_device(p)
+    p.add_argument("--calib", required=True,
+                   help="recorded sequence (.npz or .bag) to calibrate on")
+    p.add_argument("--frames", type=int, default=8,
+                   help="number of calibration frames sampled from it")
+    p.add_argument("--out", default="qpack.npz")
+    p.set_defaults(fn=cmd_quantize)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -4,10 +4,14 @@ Port of ``vision_semantic_segmentation_tpu/inference/predictor.py`` (ref
 semantic_segmentation.py:20-57): build the model from config, load weights,
 and run normalize + forward + argmax per frame on ``device``.  On the card
 the forward's ASPP runs K4.  The JAX package's per-shape compile cache is a
-``jit`` concern and has no counterpart: PyTorch runs eagerly.  Not ported
-yet: int8 serving (``quantize``, ``MODEL.QPACK``; ROADMAP queue 1 item 5)
-and spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
-item 6); both raise ``NotImplementedError``.
+``jit`` concern and has no counterpart: PyTorch runs eagerly.
+
+Int8 serving (``models/quant.py``): ``MODEL.QPACK`` names a qpack (written
+by either package) that loads onto the device, or :meth:`quantize`
+calibrates one on frames; every forward then runs the int8 backbone (Q1 on
+its 3x3 sites on the card) and the float ASPP (K4) and decoder.  Not ported
+yet: spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
+item 6) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,13 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.build import build_model
 from ..models.convert import flax_to_state_dict, load_weights
+from ..models.quant import (
+    QuantBackbone,
+    backbone_groups,
+    load_qpack,
+    quant_deeplab_forward,
+    quantize_deeplab,
+)
 from ..ops.colormap import MAPILLARY_19_PALETTE, apply_color_map
 from ..ops.resize import resize_area, resize_nearest
 from ..ops.warp import undistort
@@ -44,9 +55,6 @@ class SemanticSegmentation:
     def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  variables=None, compute_dtype: Union[str, torch.dtype, None] = None,
                  device: DeviceLike = "cuda"):
-        if cfg.MODEL.get("QPACK"):
-            raise NotImplementedError(
-                "MODEL.QPACK: int8 serving is not ported (ROADMAP queue 1 item 5, models/quant.py)")
         if int(cfg.MODEL.get("SPATIAL_SHARDS", 0)) > 1:
             raise NotImplementedError(
                 "MODEL.SPATIAL_SHARDS: spatially sharded serving is not ported "
@@ -57,20 +65,53 @@ class SemanticSegmentation:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, dtype=self.dtype, device=self.device)
+        self._weight_file = None  # quantize() reads it again for f32 weights
         if state_dict is None:
             if variables is not None:
                 state_dict = flax_to_state_dict(variables)
             elif cfg.MODEL.WEIGHT:
-                state_dict = load_weights(cfg.MODEL.WEIGHT)
+                self._weight_file = cfg.MODEL.WEIGHT
+                state_dict = load_weights(self._weight_file)
             else:
                 raise ValueError("cfg.MODEL.WEIGHT is empty and no weights given")
         self.model.load_state_dict(state_dict, strict=True)
         self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self.qpack = None
+        self._qbackbone = None
+        if cfg.MODEL.get("QPACK"):
+            self._set_qpack(load_qpack(cfg.MODEL.QPACK, self._groups()))
+
+    def _groups(self) -> int:
+        backbone = getattr(self.model, "backbone", None)
+        if backbone is None:
+            raise ValueError(f"int8 serving needs a DeepLabV3+ network, not {self.cfg.MODEL.TYPE}")
+        return backbone_groups(backbone)
+
+    def _set_qpack(self, qpack) -> None:
+        """Serve ``qpack`` (``models/quant.py``'s form) from now on."""
+        self._qbackbone = QuantBackbone(self.model.backbone, qpack, self.dtype, self.device)
+        self.qpack = qpack
 
     def quantize(self, calib_images) -> None:
-        raise NotImplementedError(
-            "int8 serving is not ported (ROADMAP queue 1 item 5, models/quant.py)")
+        """Switch to the int8-backbone serving path (``models/quant.py``).
+
+        Calibrates activation scales on ``calib_images`` (uint8 RGB frames as
+        fed to :meth:`segmentation`, normalised on the host as the JAX
+        package does) and quantizes the backbone from the float weights: the
+        weight file the network was loaded from, read again when the network
+        holds a narrower dtype than f32 (the JAX package quantizes its f32
+        variables), else the network's own.
+        """
+        frames = []
+        for img in calib_images:
+            x = np.asarray(img).astype(np.float32) / 255.0
+            x = (x - IMAGENET_MEAN) / IMAGENET_STD
+            frames.append(x[None] if x.ndim == 3 else x)
+        state_dict = None
+        if self.dtype != torch.float32 and self._weight_file:
+            state_dict = load_weights(self._weight_file)
+        self._set_qpack(quantize_deeplab(self.model, frames, state_dict))
 
     @torch.no_grad()
     def _logits(self, image, upsample_pred: bool) -> torch.Tensor:
@@ -80,7 +121,10 @@ class SemanticSegmentation:
         if xf.ndim == 3:
             xf = xf[None]
         # NHWC memory is already channels-last for the NCHW view
-        return self.model(xf.permute(0, 3, 1, 2).to(self.dtype), upsample_pred=upsample_pred)
+        x = xf.permute(0, 3, 1, 2).to(self.dtype)
+        if self._qbackbone is not None:
+            return quant_deeplab_forward(self.model, self._qbackbone, x, upsample_pred)
+        return self.model(x, upsample_pred=upsample_pred)
 
     @staticmethod
     def _squeeze(t: torch.Tensor) -> torch.Tensor:

@@ -176,8 +176,10 @@ class PointCloud2Msg:
         """(4, N) float32 x, y, z, intensity (0 when absent).
 
         Equivalent of the reference's per-point ``pc2.read_points`` loop
-        (ref mapping.py:172-183), one strided numpy view per field.  NaN
-        returns survive here and are rejected by the projection masks.
+        (ref mapping.py:172-183).  With all four fields present as float32
+        the C++ decoder (``runtime/native_io.py``) reads them in one pass,
+        as in the JAX package; otherwise one strided numpy view per field.
+        NaN returns survive here and are rejected by the projection masks.
         """
         n = self.height * self.width
         if len(self.data) < n * self.point_step:
@@ -193,6 +195,12 @@ class PointCloud2Msg:
                     f"PointCloud2 field {f.name!r} offset {f.offset} exceeds "
                     f"point_step {self.point_step}"
                 )
+        if all(f is not None and f.datatype == 7 for f in needed):
+            from .native_io import decode_pointcloud2
+
+            return decode_pointcloud2(self.data, n, self.point_step,
+                                      offsets=[f.offset for f in needed],
+                                      datatypes=[7] * 4, skip_nans=False)
         raw = np.frombuffer(self.data, np.uint8)[: n * self.point_step]
         raw = raw.reshape(n, self.point_step)
         cols = []

@@ -1,13 +1,12 @@
 """Dataloader + transform builders (ref data/build.py:10-104).
 
-Port of ``vision_semantic_segmentation_tpu/train/build.py`` for the
-Mapillary dataset.  The BDD and Pascal readers are not ported yet (ROADMAP
-queue 1 item 4); asking for them raises.
+Port of ``vision_semantic_segmentation_tpu/train/build.py``:
+``DATASET.NAME`` Mapillary, BDD or Pascal, on one device.
 """
 from __future__ import annotations
 
 from . import transforms as T
-from .datasets import DataLoader, MapillaryVistas
+from .datasets import BDDSegmentation, DataLoader, MapillaryVistas, VOCSegmentation
 
 
 def build_transform(augmentation):
@@ -41,11 +40,13 @@ def build_dataloader(cfg, mode: str = "train") -> DataLoader:
 
     transform = build_transform(augmentation)
     name = cfg.DATASET.NAME
-    if name == "Mapillary":
+    if name == "Pascal":
+        dataset = VOCSegmentation(cfg.DATASET.ROOT_DIR, type=mode, transform=transform)
+    elif name == "BDD":
+        dataset = BDDSegmentation(cfg.DATASET.ROOT_DIR, type=mode, transform=transform,
+                                  ignore_index=255)
+    elif name == "Mapillary":
         dataset = MapillaryVistas(cfg.DATASET.ROOT_DIR, type=mode, transform=transform)
-    elif name in ("Pascal", "BDD"):
-        raise NotImplementedError(
-            f"DATASET.NAME {name!r}: its reader is not ported (ROADMAP queue 1 item 4)")
     else:
         raise NotImplementedError(f"Unsupported dataset: {name}")
 

@@ -13,6 +13,12 @@ the JAX package's fused K-step dispatch equals bit for bit.
 with f32 parameters.  Multi-device training (``TRAIN.SPATIAL_SHARDS`` > 1,
 ``distributed``) is refused: ROADMAP queue 1 item 6.
 
+``tensorboard=True`` (with an ``output_dir``) writes the epoch's training
+meters and the validation loss and mIoU as TensorBoard scalars through
+``tensorboard_util.add_scalars``, with a tensorboardX ``SummaryWriter`` in
+``output_dir``; without tensorboardX the trainer runs on and logs one line
+saying so.  Any object with ``add_scalar`` may be passed instead of True.
+
 Steps are pipelined one deep: step i+1 is queued on the card before step
 i's loss and confusion are read back, so the host stages and queues while
 the card computes.  ``history`` keeps one record a step (loss, the host
@@ -38,6 +44,7 @@ from .freezer import trainable_parameters
 from .meters import MeterLogger
 from .optim import build_optimizer, build_schedule, build_scheduler
 from .prefetch import stage_batch
+from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _PARALLEL = "multi-device training is not ported (ROADMAP queue 1 item 6, parallel/)"
@@ -47,8 +54,10 @@ class Trainer:
     """Config-driven trainer (ref train.py:163-243) on one device."""
 
     def __init__(self, cfg, output_dir: str = "", logger=None, device: DeviceLike = "cuda",
-                 remat: bool = False, distributed: bool = False):
+                 tensorboard=False, remat: bool = False, distributed: bool = False):
         """Args:
+            tensorboard: True for a tensorboardX writer in ``output_dir``, or
+                a writer (any object with ``add_scalar``).
             remat: recompute the whole forward in the backward (memory saver).
             device: where the model trains; CUDA unless the caller asks for the CPU.
         """
@@ -101,6 +110,7 @@ class Trainer:
         # set by the SIGTERM handler (or request_preempt), read at step boundaries
         self._preempted = False
         self.history: List[Dict[str, float]] = []
+        self._tb = self._writer(tensorboard, output_dir)
 
     # -- helpers -------------------------------------------------------------
     def _log(self, msg: str) -> None:
@@ -110,6 +120,18 @@ class Trainer:
             self.logger.info(msg)
         else:
             self.logger.log(msg)
+
+    def _writer(self, tensorboard, output_dir: str):
+        if tensorboard is not True:
+            return tensorboard or None
+        if not output_dir:
+            return None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self._log("tensorboard: tensorboardX is not installed, no scalars are written")
+            return None
+        return SummaryWriter(output_dir)
 
     def request_preempt(self) -> None:
         """Ask the epoch loop to checkpoint + stop at the next step boundary."""
@@ -233,6 +255,9 @@ class Trainer:
             self.val_metric.merge(metrics["confusion"])
         miou = self.val_metric.global_avg
         self._log(f"Validation epoch[{epoch}] {meters} mIoU {miou:.4f}")
+        if self._tb is not None:
+            add_scalars(self._tb, meters, "val", epoch)
+            self._tb.add_scalar("val/miou", miou, epoch)
         return miou
 
     def fit(self, train_loader=None, val_loader=None) -> None:
@@ -271,6 +296,8 @@ class Trainer:
                               "stopping (AUTO_RESUME continues from this exact step)")
                     return
                 self._log(f"Epoch[{epoch}] done: {meters.summary_str}")
+                if self._tb is not None:
+                    add_scalars(self._tb, meters, "train", epoch)
                 if self.device.type == "cuda":
                     peak = torch.cuda.max_memory_allocated(self.device) / 2 ** 20
                     self._log(f"Epoch[{epoch}] peak device memory allocated: {peak:.0f} MiB")
