@@ -152,6 +152,38 @@ Phases (any failure raises, so the exit code is non-zero):
    frames.  (e) The C++ cloud decoder on phase 5's bag: equal to the numpy
    decoder, ms a cloud for both, and run (``native_io.calls``).
 
+10. The serving tools (outputs under the git-ignored
+   ``build/chip_smoke_serving/``; last, after phase 9(d), on phase 3's
+   network rebuilt from phase 5's ``weights.pth`` and its window made
+   again from its seed).  (a) Xception65 (``MODEL.TYPE "Xception"``, OS16,
+   bf16, seeded weights, BatchNorm statistics from one frame) through
+   ``FusedFramePipeline`` over a window of 8 raw 1440x1920 frames into the
+   5x2000x2000 grid, then ``finalize``: its 60 stride-1 depthwise convs a
+   frame counted by hooks, launches K3 480, K2 8, K1 1; grid and map against
+   the same run on the plain path; frames/s, forward ms (CUDA events) and a
+   profiler breakdown of one frame; then K3 against its plain version at
+   each of the 9 distinct site shapes (f32 and bf16, max |err| 0), each
+   timed in bf16 (the kernel from a CUDA graph of 30 launches through its
+   C entry point, since a launch from the host costs more than the
+   smallest sites' kernels; also through its wrapper) against
+   ``F.conv2d(groups=C)``, the plain version and its bound; the kernels
+   line's K3 entry is a frame's 60 sites summed, with (a)'s launches.  (b)
+   ``main(["compile", ...])`` of phase 3's network at 1440x1920, window 8
+   (export seconds), ``load_sequence_runner`` with its state dict (load
+   seconds; the artifact smaller than the state dict), one window: K4 8,
+   K2 8, the grid updated in place and equal to ``run_window``'s to 1e-3;
+   frames/s of both; a window of 7 refused.  (c) ``main(["autotune",
+   ...])`` at 1440x1920 over the default combos and update windows of
+   1100 (lossy: 2200 cells needed) and 0: 6 rows, a lossy row never best,
+   the overlay merged into a config that runs a window; the 'scatter'
+   fold (both sorts) within 1e-5 of the grid's largest value of K2's grid,
+   no K2 launch, bit-equal across two runs and across the sorts.  (d)
+   ``main(["autotune", "--serving", "--no-quality", ...])`` at 8 points
+   (ResNeXt50 and ResNet-50, OS 8 and 16, scales 1.0 and 0.5) at
+   1440x1920, then quality at ResNet-50 OS16 scale 0.1 on the golden scene
+   (at most 300 training steps): not partial, a recommended point, the
+   overlay and the JSON written.
+
 A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
@@ -240,6 +272,27 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of ``fn`` per call, ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events: the host's launch cost, which
+    exceeds a kernel of a few microseconds, stays out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -2177,6 +2230,316 @@ def int8_golden(weights: Path, images: list, smi: str) -> None:
     if agree < 0.97 or launches["int8_conv3x3"] != 16 * len(frames):
         raise AssertionError(f"golden int8: agreement {agree}, launches {launches}")
 
+# -- phase 10: the serving tools -----------------------------------------------------
+
+SERVING = REPO / "build" / "chip_smoke_serving"
+XCEPTION_K3_SITES = 60  # stride-1 separable convs of Xception65 a frame (models/xception.py)
+# (c): the 'scatter' fold against K2's: f32 rounding of at most C + 1 terms a
+# cell a frame, over 8 frames, as a share of the grid's largest value
+SCATTER_RTOL = 1e-5
+
+
+def xception_cfg():
+    cfg = get_cfg_defaults()
+    cfg.OUTPUT_DIR = str(SERVING / "xception")
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    net.MODEL.TYPE = "Xception"
+    net.MODEL.OUTPUT_STRIDE = 16
+    return cfg
+
+
+def calibrate_xception(pipeline: FusedFramePipeline, frame_u8: torch.Tensor) -> dict:
+    """BatchNorm statistics from one frame (as ``calibrate_batchnorm``), and
+    the (H, W, C) input of every depthwise conv that runs K3, counted."""
+    from vision_semantic_segmentation_tpu_torch.models.layers import DepthwiseConv2d
+
+    model = pipeline.model
+    sites: dict = {}
+
+    def record(module, inputs):
+        _, c, h, w = inputs[0].shape
+        sites[(h, w, c)] = sites.get((h, w, c), 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, DepthwiseConv2d) and m.uses_k3()]
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+            m.reset_running_stats()
+    model.train()
+    pipeline.segment(frame_u8)
+    model.eval()
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def xception_k3_sites(sites: dict, smi: str) -> dict:
+    """K3 against its plain version at every distinct Xception site shape
+    (f32 and bf16, max |err| 0), each timed in bf16 through its C entry
+    point and its wrapper against ``F.conv2d(groups=C)``, the plain version
+    and its bound; returns K3's kernels-line entry for a frame's sites."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    total = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    for (h, w, c), count in sorted(sites.items()):
+        x = torch.randn((1, h, w, c), generator=gen, device="cuda")
+        w9 = torch.randn((9, c), generator=gen, device="cuda")
+        for xt in (x, x.to(torch.bfloat16)):
+            walker_exact("depthwise3x3_dilated", f"Xception site {(h, w, c)}", xt, w9, 1)
+        xbf = x.to(torch.bfloat16)
+        kernel = w9.reshape(3, 3, 1, c)
+        plan = depthwise.depthwise_plan(h, w, c, 1, 2, aligned=depthwise.pointers_aligned(xbf, w9))
+        y = torch.empty_like(xbf)
+        args = plan.c_args()
+        launches = depthwise.KERNEL.launches
+        ms = graph_ms(lambda: depthwise.KERNEL.launch(
+            depthwise.ptr(xbf), depthwise.ptr(w9), depthwise.ptr(y), h, w, c, 1,
+            depthwise._DTYPES[torch.bfloat16],
+            depthwise.ctypes.cast(args, depthwise.ctypes.c_void_p)), 30)
+        depthwise.KERNEL.launches = launches  # captured launches are no launches
+        if not torch.equal(y, depthwise.depthwise3x3_dilated(xbf, kernel, 1)):
+            raise AssertionError(f"K3 replayed from a CUDA graph differs at {(h, w, c)}")
+        wrapper_ms = cuda_ms(lambda: depthwise.depthwise3x3_dilated(xbf, kernel, 1), 30)
+        plain_ms = cuda_ms(lambda: depthwise.depthwise3x3_dilated_plain(xbf, w9, 1), 3)
+        lib_ms = cuda_ms(lambda: grouped_conv(xbf, kernel, 1), 20)
+        nbytes, flops = 2 * h * w * c * 2 + 9 * c * 4, 18 * h * w * c
+        b_ms, _ = bound(nbytes, flops)
+        print(f"  K3 Xception site (H, W, C) {(h, w, c)} x{count} a frame: max |err| 0 vs plain "
+              f"(f32 and bf16); bf16 kernel {ms:.4f} ms ({b_ms / ms:.1%} of its bound "
+              f"{b_ms * 1e3:.1f} us), through the wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, conv2d {lib_ms:.4f} ms; plan group {plan.group} threads "
+              f"{plan.threads} tile {plan.tile_h}x{plan.tile_w} smem {plan.smem} on {smi}",
+              flush=True)
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bytes", nbytes),
+                       ("flops", flops)):
+            total[key] += count * v
+    print(f"  K3 over a frame's {sum(sites.values())} Xception sites: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms, conv2d {total['lib']:.4f} ms, "
+          f"bound {bound(total['bytes'], total['flops'])[0] * 1e3:.1f} us", flush=True)
+    return entry(
+        "depthwise3x3_dilated", "vision_semantic_segmentation_tpu_torch/csrc/depthwise.cu",
+        "vision_semantic_segmentation_tpu/ops/pallas/depthwise.py:224", 0.0,
+        total["ms"], total["plain"], total["lib"], total["bytes"], total["flops"],
+    )
+
+
+def xception_phase(smi: str) -> dict:
+    """(a) Xception65 at full width through ``FusedFramePipeline``: K3 60 a
+    frame; returns K3's kernels-line entry with this window's launches."""
+    cfg = xception_cfg()
+    t0 = time.perf_counter()
+    pipeline = FusedFramePipeline(cfg, compute_dtype=torch.bfloat16, distortion="points",
+                                  device="cuda", generator=torch.Generator().manual_seed(7))
+    replay = MappingReplay(cfg, engine=pipeline.engine)
+    frames = make_window(cfg, seed=900)
+    sites = calibrate_xception(pipeline, frames["image"][0])
+    n_sites = sum(sites.values())
+    print(f"Xception65 set-up {time.perf_counter() - t0:.1f} s; {n_sites} K3 sites a frame at "
+          f"{len(sites)} distinct shapes {sorted(sites.items())}", flush=True)
+    if n_sites != XCEPTION_K3_SITES:
+        raise AssertionError(f"Xception65 has {n_sites} K3 sites a frame, not {XCEPTION_K3_SITES}")
+    pipeline.step(pipeline.init_grid(), frames["image"][0], frames["pcd"][0],
+                  frames["valid"][0], frames["position"][0], frames["quaternion"][0])
+    grid = pipeline.init_grid()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = pipeline.run_window(grid, frames)
+    torch.cuda.synchronize()
+    t_window = time.perf_counter() - t0
+    color_map = replay.finalize(grid, "xception")
+    launches = launches_now()
+    print(f"Xception65 window launches {launches}", flush=True)
+    expected = {k.name: 0 for k in K.kernels()}
+    expected.update({"depthwise3x3_dilated": XCEPTION_K3_SITES * WINDOW,
+                     "evidence_fold_add": WINDOW, "render_bev_map_fused": 1})
+    if launches != expected:
+        raise AssertionError(f"Xception65 window: launch counts {launches} != {expected}")
+    forward_ms = cuda_ms(lambda: pipeline.segment(frames["image"][1]), 5)
+    print(f"Xception65 OS16 bf16 at {IMAGE_HW[0]}x{IMAGE_HW[1]}: {WINDOW / t_window:.3f} "
+          f"frames/s, {t_window / WINDOW * 1e3:.2f} ms/frame (host clock, window of {WINDOW}, "
+          f"2000x2000 grid), forward {forward_ms:.3f} ms (CUDA events) on {smi}", flush=True)
+    args = [frames[k][1] for k in ("image", "pcd", "valid", "position", "quaternion")]
+    where_time_goes("one Xception65 frame (inputs on the card)",
+                    lambda: pipeline.step(pipeline.init_grid(), *args))
+    with K.plain_versions():
+        grid_plain = pipeline.run_window(pipeline.init_grid(), frames)
+        map_plain = replay.finalize(grid_plain, "xception_plain")
+    torch.cuda.synchronize()
+    compare_with_plain("Xception65 window", grid, color_map, grid_plain, map_plain)
+    del pipeline, grid_plain
+    k3 = xception_k3_sites(sites, smi)
+    k3["launches"] = launches["depthwise3x3_dilated"]
+    return k3
+
+
+def compile_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """(b) ``compile`` of phase 3's network, loaded with its state dict and
+    run over the main path's window."""
+    from vision_semantic_segmentation_tpu_torch.runtime.export import load_sequence_runner
+
+    weights = CLI / "weights.pth"
+    out = SERVING / "runner.vsstexp"
+    t0 = time.perf_counter()
+    cli_main(["compile", "--cfg", overlay("compile", weights), "--out", str(out),
+              "--window", str(WINDOW)])
+    export_s = time.perf_counter() - t0
+    state_dict = load_weights(str(weights))
+    t0 = time.perf_counter()
+    run, meta = load_sequence_runner(str(out), state_dict)
+    load_s = time.perf_counter() - t0
+    sd_bytes = sum(t.numel() * t.element_size() for t in state_dict.values())
+    size = out.stat().st_size
+    print(f"compile: export {export_s:.2f} s, load {load_s:.2f} s, artifact {size} bytes "
+          f"against the state dict's {sd_bytes}; meta { {k: v for k, v in meta.items() if k != 'parameters'} }",
+          flush=True)
+    if size >= sd_bytes:
+        raise AssertionError("the exported artifact holds the weights")
+    run(pipeline.init_grid(), frames)  # first use (cuDNN's algorithm choice)
+    grid = pipeline.init_grid()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_grid = run(grid, frames)
+    torch.cuda.synchronize()
+    t_loaded = time.perf_counter() - t0
+    launches = launches_now()
+    check_launches("loaded exported runner", launches, k1=0)
+    if out_grid is not grid:
+        raise AssertionError("the loaded runner did not update the grid in place")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = pipeline.run_window(pipeline.init_grid(), frames)
+    torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    diff = float((grid - direct).abs().max())
+    print(f"compile: loaded runner {WINDOW / t_loaded:.3f} frames/s against run_window's "
+          f"{WINDOW / t_direct:.3f} (host clock, window of {WINDOW}) on {smi}; launches "
+          f"{launches}; grid max |diff| {diff} against run_window's", flush=True)
+    if not torch.allclose(grid, direct, atol=1e-3) or float(grid.sum()) <= 0:
+        raise AssertionError(f"the exported runner's grid differs from run_window's by {diff}")
+    try:
+        run(pipeline.init_grid(), {k: v[:WINDOW - 1] for k, v in frames.items()})
+    except ValueError as exc:
+        print(f"  a window of {WINDOW - 1} refused: {exc}", flush=True)
+    else:
+        raise AssertionError("the loaded runner took a window of another length")
+
+
+def autotune_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
+    """(c) ``autotune`` at full width over the default combos and a lossy
+    and a safe update window; the overlay merged into a config that runs a
+    window; the 'scatter' fold against K2's, and bit-equal from run to run."""
+    cfg = get_cfg_defaults()
+    required = int(np.ceil(2.2 * cfg.MAPPING.PCD.RANGE_MAX / cfg.MAPPING.RESOLUTION))
+    lossy = required // 2
+    tuned = SERVING / "tuned.yaml"
+    t0 = time.perf_counter()
+    result = cli_main(["autotune", "--cfg", overlay("autotune", CLI / "weights.pth"), "--out",
+                       str(tuned), "--window", str(WINDOW), "--windows", "1", "--repeats", "1",
+                       "--update-windows", f"{lossy},0"])
+    rows = result["rows"]
+    print(f"autotune: {len(rows)} rows in {time.perf_counter() - t0:.1f} s on {smi} "
+          f"(device_kind {result['device_kind']}); safe window needs {required} cells, "
+          f"{lossy} is lossy; best {result['best']}", flush=True)
+    for r in rows:
+        print(f"  {r}", flush=True)
+    if len(rows) != 6 or result["best"]["lossy"] or not any(r["lossy"] for r in rows):
+        raise AssertionError(f"autotune rows {rows}, best {result['best']}")
+    merged = get_cfg_defaults()
+    merged.merge_from_file(str(tuned))
+    best = result["best"]
+    if (merged.MAPPING.FOLD_METHOD, merged.MAPPING.SORT_METHOD,
+            int(merged.MAPPING.UPDATE_WINDOW)) != (best["fold"], best["sort"], best["update_window"]):
+        raise AssertionError(f"the overlay {tuned.read_text()!r} does not name the best row")
+    state = pipeline.model.state_dict()
+    tuned_grid = FusedFramePipeline(merged, state, distortion="points").run_window(
+        pipeline.engine.init_grid(), frames)
+    if not bool(torch.isfinite(tuned_grid).all()) or float(tuned_grid.sum()) <= 0:
+        raise AssertionError("the tuned config's window gave an empty grid")
+    grids = {}
+    for fold, sort in (("matmul", "bitonic"), ("scatter", "bitonic"), ("scatter", "radix"),
+                       ("scatter", "bitonic")):
+        c = get_cfg_defaults()
+        c.MAPPING.FOLD_METHOD, c.MAPPING.SORT_METHOD = fold, sort
+        K.reset_launch_counts()
+        g = FusedFramePipeline(c, state, distortion="points").run_window(
+            pipeline.engine.init_grid(), frames)
+        k2 = launches_now()["evidence_fold_add"]
+        if k2 != (WINDOW if fold == "matmul" else 0):
+            raise AssertionError(f"fold {fold}: K2 launched {k2} times")
+        if (fold, sort) in grids and not torch.equal(grids[(fold, sort)], g):
+            raise AssertionError(f"fold {fold} sort {sort} is not bit-equal from run to run")
+        grids[(fold, sort)] = g
+    ref = grids[("matmul", "bitonic")]
+    scale = float(ref.abs().max())
+    for key in (("scatter", "bitonic"), ("scatter", "radix")):
+        diff = float((grids[key] - ref).abs().max())
+        print(f"  fold/sort {key}: max |diff| {diff} against matmul/K2 (limit "
+              f"{SCATTER_RTOL} x {scale:.3f}); bit-equal across two runs", flush=True)
+        if diff > SCATTER_RTOL * scale:
+            raise AssertionError(f"{key} grid differs from K2's by {diff}")
+    if not torch.equal(grids[("scatter", "bitonic")], grids[("scatter", "radix")]):
+        raise AssertionError("the bitonic and radix sorts give different scatter grids")
+
+
+def serving_sweep_phase(smi: str) -> None:
+    """(d) ``autotune --serving``: frames/s at 8 points at 1440x1920 (both
+    backbones, OS 8 and 16, scales 1.0 and 0.5), then quality at one point
+    on the golden scene with a capped training run."""
+    t0 = time.perf_counter()
+    out = SERVING / "serving.yaml"
+    result = cli_main(["autotune", "--serving", "--no-quality", "--out", str(out),
+                       "--backbones", "resnext50_32x4d,resnet50", "--strides", "8,16",
+                       "--scales", "1.0,0.5", "--upsample", "off", "--window", str(WINDOW),
+                       "--windows", "1", "--repeats", "1", "--json",
+                       str(SERVING / "serving_fps.json")])
+    rows = result["rows"]
+    print(f"serving sweep: {len(rows)} points in {time.perf_counter() - t0:.1f} s on {smi}",
+          flush=True)
+    for r in rows:
+        print(f"  {r}", flush=True)
+    if len(rows) != 8 or any(not r["fps"] > 0 for r in rows) or out.exists():
+        raise AssertionError(f"serving fps sweep: {rows} (an fps-only sweep writes no overlay)")
+    t0 = time.perf_counter()
+    result = cli_main(["autotune", "--serving", "--out", str(out), "--backbones", "resnet50",
+                       "--strides", "16", "--scales", "0.1", "--upsample", "off", "--window",
+                       str(WINDOW), "--windows", "1", "--repeats", "1", "--scene-dir",
+                       str(SERVING / "scene"), "--train-steps", "300", "--json",
+                       str(SERVING / "serving_quality.json")])
+    rec = result["recommended"]
+    print(f"serving quality point in {time.perf_counter() - t0:.1f} s on {smi}: {result['rows']}; "
+          f"partial {result['partial']}; overlay:\n{out.read_text() if out.exists() else None}",
+          flush=True)
+    if result["partial"] or rec is None or not out.exists() or not rec["miou"] > 0.5:
+        raise AssertionError(f"serving quality point: {result}")
+
+
+def serving_tools_phase(smi: str) -> dict:
+    """Phase 10 (a)-(d), last: phase 7's golden training draws its ASPP
+    dropout from the global RNG, so the phases before it run as they did.
+    (b) and (c) rebuild phase 3's network from phase 5's ``weights.pth`` and
+    its window from the same seed.  Returns K3's kernels-line entry for
+    (a)'s window."""
+    shutil.rmtree(SERVING, ignore_errors=True)
+    SERVING.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cfg = get_cfg_defaults()
+    cfg.OUTPUT_DIR = str(SERVING / "main")
+    pipeline = FusedFramePipeline(cfg, load_weights(str(CLI / "weights.pth")),
+                                  compute_dtype=torch.bfloat16, distortion="points", device="cuda")
+    frames = make_window(cfg, seed=100)
+    k3 = xception_phase(smi)
+    clock_a = time.perf_counter()
+    compile_phase(pipeline, frames, smi)
+    clock_b = time.perf_counter()
+    autotune_phase(pipeline, frames, smi)
+    clock_c = time.perf_counter()
+    serving_sweep_phase(smi)
+    print(f"phase 10: (a) {clock_a - t0:.1f} s, (b) {clock_b - clock_a:.1f} s, (c) "
+          f"{clock_c - clock_b:.1f} s, (d) {time.perf_counter() - clock_c:.1f} s", flush=True)
+    return k3
+
 
 def sweep(smi: str) -> None:
     """Launch choices at the main path's shapes, each checked against the
@@ -2331,6 +2694,9 @@ def main() -> None:
     clock(start, "phase 7 (training)")
     int8_golden(*golden, smi)
     clock(start, "phase 9(d) (int8 golden scene)")
+    k3 = serving_tools_phase(smi)
+    entries = [k3 if e["name"] == k3["name"] else e for e in entries]
+    clock(start, "phase 10 (serving tools)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))

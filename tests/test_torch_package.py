@@ -27,6 +27,8 @@ from vision_semantic_segmentation_tpu_torch.runtime import (
 from vision_semantic_segmentation_tpu_torch.__main__ import main as cli_main
 from vision_semantic_segmentation_tpu_torch.runtime.async_bus import run_online
 from vision_semantic_segmentation_tpu_torch.runtime.profiling import profile_stages
+from vision_semantic_segmentation_tpu_torch.runtime.serving_pareto import score_quality, sweep_fps
+from vision_semantic_segmentation_tpu_torch.runtime.tuning import tune
 from vision_semantic_segmentation_tpu_torch.runtime.video import generate_video
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
@@ -53,7 +55,8 @@ def test_no_jax_imports():
     online = {"inference.predictor", "ops.warp", "ops.kernels.depthwise_hoist", "runtime.bus",
               "runtime.node", "utils.logger", "utils.file_io", "models.quant",
               "ops.kernels.int8_conv", "runtime.native_io", "train.tensorboard_util",
-              "train.datasets.bdd", "train.datasets.pascal", "train.datasets.preparation"}
+              "train.datasets.bdd", "train.datasets.pascal", "train.datasets.preparation",
+              "models.xception", "ops.sort", "runtime.export", "runtime.serving_pareto"}
     assert {f"{port.__name__}.{m}" for m in online} <= walked
     assert result["bad"] == []
 
@@ -99,6 +102,12 @@ def test_config_copy_matches():
     assert config.get_train_cfg_defaults() == j_config.get_train_cfg_defaults()
 
 
+def _xception(cfg):
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    net.MODEL.TYPE, net.MODEL.OUTPUT_STRIDE = "Xception", 16
+    return cfg
+
+
 @pytest.mark.parametrize("entry", [
     lambda cfg: FusedFramePipeline(cfg),
     lambda cfg: MappingReplay(cfg),
@@ -113,9 +122,18 @@ def test_config_copy_matches():
     lambda cfg: profile_stages(cfg),
     lambda cfg: generate_video(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, "drive.avi", cfg.OUTPUT_DIR),
     lambda cfg: cli_main(["profile"]),
+    lambda cfg: tune(cfg),
+    lambda cfg: sweep_fps(cfg, []),
+    lambda cfg: score_quality(None, {"image_scale": 1.0, "backbone": "resnet18",
+                                     "output_stride": 16, "upsample_pred": False}),
+    lambda cfg: cli_main(["compile", "--out", f"{cfg.OUTPUT_DIR}/r.vsstexp"]),
+    lambda cfg: cli_main(["autotune", "--out", f"{cfg.OUTPUT_DIR}/t.yaml"]),
+    lambda cfg: cli_main(["autotune", "--serving", "--out", f"{cfg.OUTPUT_DIR}/s.yaml"]),
+    lambda cfg: build_model(_xception(cfg).VISION_SEM_SEG.SEM_SEG_NETWORK),
 ], ids=["pipeline", "replay", "engine", "build_model", "predictor", "segmentation_node",
         "mapping_node", "fused_online_node", "run_online", "cli", "profile_stages",
-        "generate_video", "cli_profile"])
+        "generate_video", "cli_profile", "tune", "sweep_fps", "score_quality", "cli_compile",
+        "cli_autotune", "cli_autotune_serving", "build_xception"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -17,6 +17,14 @@ flags:
     python -m vision_semantic_segmentation_tpu_torch video    --cfg demo.yaml --video in.mp4
     python -m vision_semantic_segmentation_tpu_torch quantize --cfg exp.yaml --calib seq.{npz,bag}
                                                               [--frames 8] [--out qpack.npz]
+    python -m vision_semantic_segmentation_tpu_torch compile  --cfg exp.yaml [--out runner.vsstexp]
+                                                              [--height H --width W --window T]
+    python -m vision_semantic_segmentation_tpu_torch autotune --cfg exp.yaml [--out tuned.yaml]
+                                                              [--update-windows 0,600]
+                                                              [--folds ..] [--sorts ..]
+    python -m vision_semantic_segmentation_tpu_torch autotune --serving --cfg exp.yaml
+                                                              [--backbones ..] [--strides ..]
+                                                              [--scales ..] [--no-quality]
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
@@ -33,9 +41,16 @@ writes a ``.pth`` as the JAX package's ``.npz`` (host only) and
 ``quantize`` calibrates and writes an int8 qpack, which the two-node
 dataflow serves when ``VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.QPACK`` names
 it (Q1 on the backbone's 3x3 sites; the fused paths build from the float
-weights and ignore it, as the JAX package's do).  Not ported yet:
-``compile`` and ``autotune`` (ROADMAP queue 1 item 5) and ``replay
---frame-parallel`` (item 6).
+weights and ignore it, as the JAX package's do).  ``compile`` writes the
+fused frame step exported by ``torch.export`` (``runtime/export.py``; the
+weights stay out of the artifact and are supplied at load, the kernels are
+custom ops in it); ``autotune`` times the grid update's
+``FOLD_METHOD``/``SORT_METHOD``/``UPDATE_WINDOW`` candidates and writes
+the winner as a YAML overlay (``runtime/tuning.py``); ``autotune
+--serving`` sweeps operating points for frames/s and golden-scene mIoU
+(``runtime/serving_pareto.py``).  Not ported yet: ``replay
+--frame-parallel``, ``MAPPING.GRID_SHARDS``, ``MODEL.SPATIAL_SHARDS`` and
+data-parallel training (ROADMAP queue 1 item 6).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -43,8 +58,9 @@ weights and ignore it, as the JAX package's do).  Not ported yet:
 :class:`~.runtime.node.MappingNode` (the two-node dataflow), ``export`` the
 frames written, ``eval`` the scores, ``train`` the
 :class:`~.train.trainer.Trainer`, ``convert`` the ``.npz`` path,
-``profile`` the result dict, ``video`` the output video path and
-``quantize`` the qpack.
+``profile`` the result dict, ``video`` the output video path,
+``quantize`` the qpack, ``compile`` the artifact's path, ``autotune`` the
+tuner's result and ``autotune --serving`` the Pareto result.
 """
 from __future__ import annotations
 
@@ -338,6 +354,131 @@ def cmd_quantize(args):
     return predictor.qpack
 
 
+def cmd_compile(args):
+    """Export the fused frame step to a serving artifact (JAX ``cmd_compile``).
+
+    ``torch.export`` traces the camera + LiDAR step at the given frame size
+    (``runtime/export.py``); loading it back builds no pipeline and traces
+    nothing.  The artifact pins camera, frame size, window length and grid
+    geometry; the weights stay outside and are supplied at load time.
+    """
+    from .mapping.engine import SemanticMappingEngine
+    from .models.convert import load_weights
+    from .runtime.export import export_sequence_runner
+    from .runtime.pipeline import FusedFramePipeline
+
+    cfg = _load_app_cfg(args.cfg)
+    weight = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.WEIGHT
+    engine = SemanticMappingEngine(cfg, device=args.device)
+    pipeline = FusedFramePipeline(cfg, load_weights(weight) if weight else None, engine=engine,
+                                  distortion="points", device=args.device)
+    out = export_sequence_runner(pipeline, args.out, image_hw=(args.height, args.width),
+                                 window=args.window, camera=args.camera)
+    print(f"wrote {out}")
+    return out
+
+
+def cmd_autotune_serving(args):
+    """Serving operating points (``runtime/serving_pareto.py``): every
+    backbone x OUTPUT_STRIDE x IMAGE_SCALE x UPSAMPLE_PRED point timed
+    through the fused pipeline, then (unless --no-quality) scored for
+    golden-scene mIoU with a network trained for the point.  Writes the
+    recommended point as a YAML overlay and (with --json) the sweep.  A
+    point whose quality fails is reported and the sweep goes on, marked
+    ``partial`` (in the JSON and the overlay's first line)."""
+    import traceback
+
+    from .runtime.serving_pareto import (
+        SceneArtifacts,
+        default_points,
+        pareto,
+        score_quality,
+        serving_overlay_yaml,
+        sweep_fps,
+        write_json,
+    )
+
+    cfg = _load_app_cfg(args.cfg)
+    kwargs = {}
+    if args.backbones:
+        kwargs["backbones"] = [b for b in args.backbones.split(",") if b]
+    if args.strides:
+        kwargs["strides"] = [int(v) for v in args.strides.split(",") if v]
+    if args.scales:
+        kwargs["scales"] = [float(v) for v in args.scales.split(",") if v]
+    if args.upsample != "both":
+        kwargs["upsample"] = (args.upsample == "on",)
+    points = default_points(**kwargs)
+    print(f"serving sweep: {len(points)} operating points")
+
+    fps_rows = sweep_fps(cfg, points, image_hw=(args.height, args.width), window=args.window,
+                         n_windows=args.windows, repeats=args.repeats, camera=args.camera,
+                         log=print, device=args.device)
+    quality_rows, missing = [], []
+    if not args.no_quality:
+        scene_dir = args.scene_dir or osp.join(
+            osp.dirname(osp.abspath(args.out)) or ".", "serving_scene")
+        scene = SceneArtifacts(scene_dir, log=print)
+        for point in points:
+            try:
+                quality_rows.append(score_quality(
+                    scene, point, cfg=cfg, train_steps=args.train_steps,
+                    train_batch=args.train_batch or None, log=print, device=args.device))
+            except Exception:  # one failed point must not end the sweep: it is marked
+                print(f"quality point {point} failed (the sweep is partial):\n"
+                      + traceback.format_exc())
+                missing.append(point)
+    result = pareto(fps_rows, quality_rows, quality_budget=args.budget,
+                    missing_quality_points=missing)
+    if result["recommended"] is not None:
+        r = result["recommended"]
+        print(f"recommended: {r['backbone']} os{r['output_stride']} scale={r['image_scale']} "
+              f"upsample={r['upsample_pred']} -> {r['fps']} fps at miou {r.get('miou')} "
+              f"(anchor {result['anchor_miou']})"
+              + (f"; PARTIAL: {len(missing)} point(s) unscored" if missing else ""))
+        with open(args.out, "w") as f:
+            f.write(serving_overlay_yaml(r, result))
+        print(f"wrote {args.out}")
+    elif fps_rows and args.no_quality:
+        fastest = max(fps_rows, key=lambda x: x["fps"])
+        print("fps-only sweep (no quality scores): fastest point "
+              f"{fastest['backbone']} os{fastest['output_stride']} "
+              f"scale={fastest['image_scale']} upsample={fastest['upsample_pred']} "
+              f"-> {fastest['fps']} fps; NOT writing an overlay without a quality budget check")
+    if args.json:
+        print(f"wrote {write_json(result, args.json)}")
+    return result
+
+
+def cmd_autotune(args):
+    """Time the grid-update backends at this config's shapes on this device
+    and write a YAML overlay naming the winner (``runtime/tuning.py``):
+    ``autotune --cfg exp.yaml --out tuned.yaml``, then ``--cfg exp.yaml
+    --cfg tuned.yaml`` (repeated --cfg merges in order)."""
+    from .runtime.tuning import tune, write_overlay
+
+    if args.serving:
+        return cmd_autotune_serving(args)
+    cfg = _load_app_cfg(args.cfg)
+    update_windows = ([int(v) for v in args.update_windows.split(",") if v != ""]
+                      if args.update_windows else None)
+    combos = None
+    if args.folds or args.sorts:
+        folds = (args.folds or "matmul,scatter").split(",")
+        sorts = (args.sorts or "bitonic,radix").split(",")
+        combos = [(f, s) for f in folds for s in sorts]
+    result = tune(cfg, image_hw=(args.height, args.width), window=args.window,
+                  n_windows=args.windows, repeats=args.repeats, combos=combos,
+                  update_windows=update_windows, camera=args.camera,
+                  distortion=args.distortion, log=print, device=args.device)
+    best = result["best"]
+    print(f"best: fold={best['fold']} sort={best['sort']} "
+          f"update_window={best['update_window']} -> {best['fps']} fps "
+          f"on {result['device_kind']}")
+    print(f"wrote {write_overlay(result, args.out)}")
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="vision_semantic_segmentation_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -434,6 +575,61 @@ def main(argv=None):
                    help="number of calibration frames sampled from it")
     p.add_argument("--out", default="qpack.npz")
     p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("compile", help="export the fused pipeline's frame step to a serving "
+                                       "artifact")
+    add_cfg_and_device(p)
+    p.add_argument("--out", default="runner.vsstexp")
+    p.add_argument("--camera", default="camera1")
+    p.add_argument("--height", type=int, default=1440)
+    p.add_argument("--width", type=int, default=1920)
+    p.add_argument("--window", type=int, default=16)
+    p.set_defaults(fn=cmd_compile)
+
+    p = sub.add_parser("autotune", help="measure grid-update backends at this config's shapes; "
+                                        "write a YAML overlay selecting the winner")
+    add_cfg_and_device(p)
+    p.add_argument("--out", default="tuned.yaml")
+    p.add_argument("--camera", default="camera1")
+    p.add_argument("--height", type=int, default=1440)
+    p.add_argument("--width", type=int, default=1920)
+    p.add_argument("--window", type=int, default=16, help="frames per timed window")
+    p.add_argument("--windows", type=int, default=2,
+                   help="distinct timed windows (fresh data each)")
+    p.add_argument("--repeats", type=int, default=3, help="best-of repeats")
+    p.add_argument("--update-windows", default="",
+                   help="comma list of UPDATE_WINDOW cell sizes to sweep (0 = dense); "
+                        "default keeps the config's value")
+    p.add_argument("--folds", default="", help="comma list: matmul,scatter")
+    p.add_argument("--sorts", default="", help="comma list: bitonic,radix")
+    p.add_argument("--distortion", default="auto", choices=["auto", "none", "points"])
+    p.add_argument("--serving", action="store_true",
+                   help="sweep serving operating points instead of grid-update backends: "
+                        "backbone x OUTPUT_STRIDE x IMAGE_SCALE x UPSAMPLE_PRED, each timed "
+                        "through the fused pipeline and scored for golden-scene map mIoU; "
+                        "writes the Pareto frontier and a recommended overlay")
+    p.add_argument("--backbones", default="",
+                   help="[serving] comma list (default resnext50_32x4d,resnet50)")
+    p.add_argument("--strides", default="",
+                   help="[serving] comma list of OUTPUT_STRIDE (default 8,16)")
+    p.add_argument("--scales", default="",
+                   help="[serving] comma list of IMAGE_SCALE (default 1.0,0.5,0.355)")
+    p.add_argument("--upsample", default="both", choices=["both", "on", "off"],
+                   help="[serving] UPSAMPLE_PRED values to sweep")
+    p.add_argument("--no-quality", action="store_true",
+                   help="[serving] fps sweep only (no golden-scene training or scoring)")
+    p.add_argument("--scene-dir", default="",
+                   help="[serving] directory for golden-scene artifacts (reused across runs; "
+                        "default <out dir>/serving_scene)")
+    p.add_argument("--train-steps", type=int, default=400,
+                   help="[serving] most segmenter train steps per point")
+    p.add_argument("--train-batch", type=int, default=0,
+                   help="[serving] segmenter train mini-batch (0 = all 8 frames)")
+    p.add_argument("--budget", type=float, default=0.95,
+                   help="[serving] the recommended point keeps this fraction of the headline "
+                        "point's golden mIoU")
+    p.add_argument("--json", default="", help="[serving] also dump the full sweep as JSON")
+    p.set_defaults(fn=cmd_autotune)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -10,29 +10,46 @@ math of ref mapping.py:292-488): per frame,
 
 The grid is planar (C, H, W) f32 on the device and is updated in place.
 
-The update is scatter then fold.  The reference adds evidence with a numpy
-fancy-index ``+=``, which collapses duplicate (cell, class) hits to one
-observation per frame.  Here the hits are marked with ``index_put_`` of 1.0
-without accumulation: duplicates write the same value, so they collapse
+The update has two forms, chosen by ``MAPPING.FOLD_METHOD`` (JAX
+``mapping/engine.py:446-456``; an unknown name raises ``ValueError``):
+
+``'matmul'`` (the default) marks hits in a dense (C, H*W) observation
+buffer, then K2 folds it into the grid.  The reference adds evidence with a
+numpy fancy-index ``+=``, which collapses duplicate (cell, class) hits to
+one observation per frame.  Here the hits are marked with ``index_put_`` of
+1.0 without accumulation: duplicates write the same value, so they collapse
 exactly, with no sort (the JAX package sorts, because a TPU serialises
-scatters with duplicate indices).  Points that do not update write to one
-spare slot past the end, so no boolean compaction (and no host sync) is
-needed.  ``duplicate_semantics='accumulate'`` adds 1.0 per point with
+scatters with duplicate indices).  So ``SORT_METHOD`` changes nothing here:
+both sorts give one grid.  Points that do not update write to one spare
+slot past the end, so no boolean compaction (and no host sync) is needed.
+``duplicate_semantics='accumulate'`` adds 1.0 per point with
 ``index_add_``; counts below 2**24 are exact in f32, so the result does not
 depend on the order of the atomics.
 
+``'scatter'`` (JAX ``:495-541``) touches O(points) cells, not O(cells): the
+(cell, class) keys are sorted cell-major (``SORT_METHOD``: ``'bitonic'`` is
+``torch.sort``, ``'radix'`` is ``ops/sort.py``), each hit becomes its
+class's evidence column scaled by the hit's observation (1, a count or a
+confidence), a segmented sum in a fixed order (a Hillis-Steele scan) totals
+each cell's columns, and one ``index_add_`` at the unique hit cells adds
+the totals to the grid.  Positions that are not a cell's last add exact
+zeros, so the grid does not depend on the order of the adds: it is equal
+bit for bit from run to run.  No K2 runs.  Its sums add the evidence
+columns in another order than K2's fold, so the two forms agree to f32
+rounding of at most C + 1 terms a cell.
+
 Confidence weighting (``weights``): a deduped (cell, class) hit carries the
-largest confidence of its points, written with ``scatter_reduce_`` ``amax``
-in place of the ``index_put_`` of 1.0; per-point mode sums the
-confidences.  K2 folds the result either way, and with every weight at 1
-the grid equals the unweighted one exactly.
+largest confidence of its points (``scatter_reduce_`` ``amax`` into the
+buffer, or a segmented max); per-point mode sums the confidences.  With
+every weight at 1 the grid equals the unweighted one exactly.
+
+Windowed mode (``MAPPING.UPDATE_WINDOW`` > 0) updates a pose-centred slab
+gathered and scattered back by index tensors, so it reads nothing back to
+the host either; the whole frame step can be traced by ``torch.export``.
 
 The planar fallback (``update_map_planar``, ref mapping.py:446-488) fits an
 image -> grid homography on the host and warps the semantic image onto the
 grid on the grid's device; it adds per-class counts, not the evidence fold.
-
-Not ported: the sort / fold method switches, which choose between TPU
-formulations of the same update.
 """
 from __future__ import annotations
 
@@ -56,6 +73,7 @@ from ..geometry.transforms import (
 )
 from ..ops.colormap import colors_to_labels
 from ..ops.kernels.fold import evidence_fold_add_
+from ..ops.sort import radix_sort_with_perm
 
 
 def getattr_cfg(cfg, dotted: str, default):
@@ -131,6 +149,31 @@ def pad_points(pcd: np.ndarray, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, valid
 
 
+def _segment_edges(sorted_keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first, last): where each run of equal sorted keys starts and ends."""
+    edge = sorted_keys[1:] != sorted_keys[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=sorted_keys.device)
+    return torch.cat([one, edge]), torch.cat([edge, one])
+
+
+def _segmented_scan(first: torch.Tensor, values: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of ``op`` within the segments that start at ``first``
+    (Hillis-Steele: log2(n) passes, each element combined with the one
+    ``shift`` before it unless a segment starts between them).  The order
+    of the combines is fixed by the positions alone, so the result is the
+    same from run to run.  ``values`` may have trailing dims."""
+    n = values.shape[0]
+    shift = 1
+    while shift < n:
+        cur = first[shift:]
+        gate = cur.view(-1, *([1] * (values.dim() - 1)))
+        values = torch.cat([values[:shift],
+                            torch.where(gate, values[shift:], op(values[:-shift], values[shift:]))])
+        first = torch.cat([first[:shift], cur | first[:-shift]])
+        shift *= 2
+    return values
+
+
 class SemanticMappingEngine:
     """Mapping engine; the grid is explicit state, updated in place.
 
@@ -179,6 +222,10 @@ class SemanticMappingEngine:
         self.use_intensity = bool(cfg.MAPPING.PCD.USE_INTENSITY)
         self.range_max = float(cfg.MAPPING.PCD.RANGE_MAX)
         self.point_bucket = int(cfg.MAPPING.POINT_BUCKET)
+        # the update's form ('matmul' | 'scatter') and the scatter form's
+        # key sort ('bitonic' | 'radix'); checked when the update is built
+        self.fold_method = str(getattr_cfg(cfg, "MAPPING.FOLD_METHOD", "matmul"))
+        self.sort_method = str(getattr_cfg(cfg, "MAPPING.SORT_METHOD", "bitonic"))
 
         if evidence is None:
             evidence = evidence_matrix(cfg, len(self.label_names))
@@ -355,8 +402,15 @@ class SemanticMappingEngine:
 
         ``grid`` is a contiguous planar (C, gh, gw) slab, updated in place;
         ``cell`` indexes it as ``row * gw + col``.  ``weights`` (N,) scales
-        each point's observation (confidence weighting).
+        each point's observation (confidence weighting).  The form follows
+        ``fold_method`` (see the module docstring).
         """
+        if self.fold_method not in ("matmul", "scatter"):
+            raise ValueError(f"unknown fold_method {self.fold_method!r}")
+        if self.sort_method not in ("bitonic", "radix"):
+            raise ValueError(f"unknown sort_method {self.sort_method!r}")
+        if self.fold_method == "scatter":
+            return self._build_scatter_update()
         evidence = self.evidence
         num_cls = evidence.shape[0]
         lane = self.lane_channel
@@ -405,13 +459,65 @@ class SemanticMappingEngine:
 
         return _dense_update
 
+    def _build_scatter_update(self):
+        """``fold_method='scatter'``: sort the cell-major (cell, class) keys,
+        total each cell's evidence columns with segmented sums, add the totals
+        at the unique hit cells (JAX ``_scatter_fold``)."""
+        ev_rows = torch.as_tensor(np.ascontiguousarray(self.evidence.T), device=self.device)
+        num_cls = self.evidence.shape[0]
+        lane = self.lane_channel
+        use_intensity = self.use_intensity and lane >= 0
+        dedupe = self.duplicate_semantics == "reference"
+        use_radix = self.sort_method == "radix"
+
+        def _scatter_update(grid, cell, cls, intensity, upd, gh, gw, weights=None):
+            sentinel = gh * gw * num_cls
+            key = torch.where(upd, cell.long() * num_cls + cls.clamp(min=0).long(),
+                              torch.full_like(cell, sentinel, dtype=torch.long))
+            if use_radix:
+                ksort, order = radix_sort_with_perm(key, key_bits=int(sentinel).bit_length())
+                order = order.long()
+            else:
+                ksort, order = torch.sort(key, stable=True)
+            kvalid = ksort < sentinel
+            cls_s, cell_s = ksort % num_cls, ksort // num_cls
+            first, last = _segment_edges(ksort)
+
+            if weights is not None:
+                w = torch.where(kvalid, weights.to(grid.dtype)[order], 0.0)
+                obs = _segmented_scan(first, w, torch.maximum if dedupe else torch.add)
+            elif dedupe:  # one observation per (cell, class) a frame
+                obs = torch.ones_like(ksort, dtype=grid.dtype)
+            else:  # per-point counts
+                obs = _segmented_scan(first, kvalid.to(grid.dtype), torch.add)
+            # each (cell, class) segment's last element carries its class's
+            # evidence column scaled by the segment's observation
+            hit = last & kvalid
+            vals = ev_rows[cls_s] * torch.where(hit, obs, 0.0)[:, None]
+            if use_intensity:
+                boost = upd & (cls == lane) & ((intensity < 2) | (intensity > 14))
+                bstat = _segmented_scan(first, boost[order].to(grid.dtype), torch.add)
+                if dedupe:  # any boost point in the segment: +2 once
+                    bstat = torch.clamp(bstat, max=1.0)
+                vals[:, lane] += torch.where(hit & (cls_s == lane), 2.0 * bstat, 0.0)
+            # keys sort cell-major, so a cell's segments are contiguous
+            cell_first, cell_last = _segment_edges(cell_s)
+            totals = _segmented_scan(cell_first, vals, torch.add)
+            at = cell_last & kvalid
+            grid.view(num_cls, gh * gw).index_add_(
+                1, torch.where(at, cell_s, 0), torch.where(at[:, None], totals, 0.0).T)
+            return grid
+
+        return _scatter_update
+
     def _build_update(self):
         """Closure ``update(grid, cell, cls, intensity, upd, weights=None)``
         applying the frame update to the full (C, H, W) grid.
 
-        Windowed mode: the update runs on a pose-centered (C, win, win) slab,
-        so its cost is independent of the grid size.  The slab's corner is
-        read back to the host (one sync per frame) to slice the grid.
+        Windowed mode: the update runs on a pose-centred (C, win, win) slab,
+        so its cost is independent of the grid size.  The slab is gathered
+        and written back through index tensors centred on the mean updated
+        cell, so nothing is read back to the host.
         """
         _dense_update = self._build_dense_update()
         spec = self.grid_spec
@@ -425,20 +531,22 @@ class SemanticMappingEngine:
             row = cell // w
             col = cell % w
             n_upd = torch.clamp(upd.sum(), min=1)
-            # center the window on the mean updated cell
+            # centre the window on the mean updated cell
             r_mean = torch.where(upd, row, 0).sum() // n_upd
             c_mean = torch.where(upd, col, 0).sum() // n_upd
-            r0 = int(torch.clamp(r_mean - win_r // 2, 0, max(h - win_r, 0)))
-            c0 = int(torch.clamp(c_mean - win_c // 2, 0, max(w - win_c, 0)))
+            r0 = torch.clamp(r_mean - win_r // 2, 0, max(h - win_r, 0))
+            c0 = torch.clamp(c_mean - win_c // 2, 0, max(w - win_c, 0))
 
             lr = row - r0
             lc = col - c0
             in_win = (lr >= 0) & (lr < win_r) & (lc >= 0) & (lc < win_c)
             local_cell = lr * win_c + lc
-            slab = grid[:, r0 : r0 + win_r, c0 : c0 + win_c].contiguous()
+            rows = (r0 + torch.arange(win_r, device=grid.device))[:, None]
+            cols = (c0 + torch.arange(win_c, device=grid.device))[None, :]
+            slab = grid[:, rows, cols].contiguous()
             _dense_update(slab, local_cell, cls, intensity, upd & in_win, win_r, win_c,
                           weights=weights)
-            grid[:, r0 : r0 + win_r, c0 : c0 + win_c] = slab
+            grid[:, rows, cols] = slab
             return grid
 
         if windowed:

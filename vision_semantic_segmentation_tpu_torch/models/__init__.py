@@ -1,5 +1,5 @@
 from .aspp import ASPP
-from .build import Dummy, build_model, build_train_model, init_weights_
+from .build import Dummy, XceptionSeg, build_model, build_train_model, build_xception, init_weights_
 from .convert import (
     convert_pth_to_npz,
     flax_to_state_dict,
@@ -15,11 +15,14 @@ from .loss import CrossEntropyLoss, cross_entropy_loss
 from .metrics import MeanIOU, confusion_matrix_update, miou_from_confusion
 from .layers import BatchNorm2d, ConvBNReLU, DepthwiseConv2d, DepthwiseSeparableConv, same_padding
 from .resnet import ResNetBackbone, __all_backbones__, build_backbone
+from .xception import Xception65, XceptionBlock
 
 __all__ = [
     "ASPP",
     "Dummy",
+    "XceptionSeg",
     "build_model",
+    "build_xception",
     "build_train_model",
     "init_weights_",
     "convert_pth_to_npz",
@@ -45,4 +48,6 @@ __all__ = [
     "ResNetBackbone",
     "__all_backbones__",
     "build_backbone",
+    "Xception65",
+    "XceptionBlock",
 ]

@@ -1,7 +1,8 @@
 """Model registry (ref models/build.py:57-72).
 
-Port of ``vision_semantic_segmentation_tpu/models/build.py`` for DeepLabV3+
-and the Dummy model (Xception waits).  ``build_model`` returns the network
+Port of ``vision_semantic_segmentation_tpu/models/build.py``: DeepLabV3+,
+Xception (Xception65 and a 1x1 classifier) and the Dummy model.
+``build_model`` returns the network
 alone, in eval mode, on ``device`` (CUDA unless the caller asks for the
 CPU), in ``dtype`` and channels-last memory, for the serving paths.
 ``build_train_model`` returns ``(model, loss_fn, train_metric,
@@ -25,6 +26,7 @@ from .deeplab import deeplab_from_cfg
 from .loss import CrossEntropyLoss
 from .metrics import MeanIOU
 from .resize import resize_nchw
+from .xception import Xception65
 
 
 class Dummy(nn.Module):
@@ -44,7 +46,40 @@ class Dummy(nn.Module):
         return y
 
 
+class XceptionSeg(nn.Module):
+    """Xception65 feature extractor + 1x1 classifier (JAX ``build_xception``).
+
+    The reference declares this builder and leaves it unimplemented (ref
+    models/build.py:9-10); the JAX package wires its Xception65 into this
+    minimal head, and so does the port.  With ``upsample_pred`` the logits
+    are resized to the input in f32 (align corners).  The JAX head computes
+    in f32 whatever dtype it is built for (its modules take no dtype); the
+    port's follows ``build_model``'s ``dtype`` like every other network.
+    """
+
+    def __init__(self, num_classes: int, output_stride: int = 16, remat: bool = False):
+        super().__init__()
+        self.backbone = Xception65(output_stride=output_stride, remat=remat)
+        self.classifier = nn.Conv2d(Xception65.out_channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor, upsample_pred: bool = True) -> torch.Tensor:
+        logits = self.classifier(self.backbone(x)["feature"])
+        if upsample_pred:
+            logits = resize_nchw(logits.float(), x.shape[-2:])
+        return logits
+
+
+def build_xception(cfg) -> XceptionSeg:
+    """``XceptionSeg`` of a network config node (``TRAIN.REMAT_BACKBONE``
+    exists only in the train tree)."""
+    return XceptionSeg(
+        cfg.DATASET.NUM_CLASSES, output_stride=cfg.MODEL.OUTPUT_STRIDE,
+        remat=bool(getattr(getattr(cfg, "TRAIN", None), "REMAT_BACKBONE", False)),
+    )
+
+
 _MODEL_BUILDERS = {
+    "Xception": build_xception,
     "DeepLabv3+": deeplab_from_cfg,
     "Dummy": lambda cfg: Dummy(cfg.DATASET.NUM_CLASSES),
 }

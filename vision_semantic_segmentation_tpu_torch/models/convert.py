@@ -31,6 +31,15 @@ Mapping rules (flax -> torch, ``flax_to_state_dict``):
   * a trailing ``_<int>`` on a path component is a torch ModuleList /
     Sequential index: ``layer1_0`` -> ``layer1.0``,
     ``module_pyramid_2`` -> ``module_pyramid.2``
+  * Xception65's modules take the reference torch names (the inverse of
+    ``tests/test_xception_parity.py::_remap_keys``): ``entry_conv{1,2}`` ->
+    ``entry_flow_modules.{0,1}``, ``entry_block{n}`` ->
+    ``entry_flow_modules.{n+1}``, ``middle_block{n}`` ->
+    ``middle_flow_modules.{n}``, ``exit_block`` -> ``exit_flow_modules.0``,
+    ``exit_conv{n}`` -> ``exit_flow_modules.{n+1}``; in a block of k
+    separable convs ``residual_{j}`` -> ``residual_group1.{2j}`` for j < k-1
+    and the last -> ``residual_group2.1`` in an entry block (after its zero
+    pad), ``residual_group2.0`` elsewhere
 """
 from __future__ import annotations
 
@@ -43,6 +52,45 @@ import numpy as np
 import torch
 
 _INDEXED = re.compile(r"^(.*?)((?:_\d+)+)$")
+_XCEPTION = re.compile(r"^(entry_conv|entry_block|middle_block|exit_block|exit_conv)(\d*)$")
+_RESIDUAL = re.compile(r"^residual_(\d+)$")
+_XCEPTION_FLOW = {  # flax name -> (torch ModuleList, index offset)
+    "entry_conv": ("entry_flow_modules", -1),
+    "entry_block": ("entry_flow_modules", 1),
+    "middle_block": ("middle_flow_modules", 0),
+    "exit_block": ("exit_flow_modules", 0),
+    "exit_conv": ("exit_flow_modules", 1),
+}
+
+
+def _xception_block_sizes(paths) -> Dict[Tuple[str, ...], int]:
+    """Separable convs per Xception block, keyed by the block's flax path."""
+    sizes: Dict[Tuple[str, ...], int] = {}
+    for path in paths:
+        for i in range(1, len(path)):
+            m = _RESIDUAL.match(path[i])
+            if m and _XCEPTION.match(path[i - 1]):
+                sizes[path[:i]] = max(sizes.get(path[:i], 0), int(m.group(1)) + 1)
+    return sizes
+
+
+def _xception_torch_path(path: Tuple[str, ...], sizes) -> Tuple[str, ...]:
+    """A flax module path with Xception65's names as the reference's."""
+    out = []
+    for i, part in enumerate(path):
+        top = _XCEPTION.match(part)
+        res = _RESIDUAL.match(part) if i and _XCEPTION.match(path[i - 1]) else None
+        if top:
+            flow, offset = _XCEPTION_FLOW[top.group(1)]
+            out += [flow, str(int(top.group(2) or 0) + offset)]
+        elif res:
+            j, k = int(res.group(1)), sizes[path[:i]]
+            padded = path[i - 1].startswith("entry_block")
+            out += (["residual_group1", str(2 * j)] if j < k - 1
+                    else ["residual_group2", "1" if padded else "0"])
+        else:
+            out.append(part)
+    return tuple(out)
 
 
 def _split_indices(parts: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -69,10 +117,12 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Convert ``{'params': ..., 'batch_stats': ...}`` into a torch state dict."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
+    sizes = _xception_block_sizes(path for path, _ in _leaves(variables.get("params", {})))
 
     def put(path: Tuple[str, ...], leaf: str, value: np.ndarray) -> None:
+        path = _split_indices(_xception_torch_path(path, sizes))
         # np.ascontiguousarray would turn a 0-d array into shape (1,)
-        sd[".".join(_split_indices(path) + (leaf,))] = torch.from_numpy(
+        sd[".".join(path + (leaf,))] = torch.from_numpy(
             np.array(value, order="C", copy=True)
         )
 

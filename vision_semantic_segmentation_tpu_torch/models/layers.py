@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.kernels.depthwise import DepthwiseBranches
+from ..ops.kernels.depthwise import DepthwiseBranches, depthwise_branches
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -153,19 +153,25 @@ class DepthwiseConv2d(nn.Conv2d):
 
 def depthwise_convs(convs: Sequence[DepthwiseConv2d], x: torch.Tensor) -> List[torch.Tensor]:
     """Several depthwise convs that pass ``uses_k3`` over one NCHW
-    (channels-last) input, through ``DepthwiseBranches``.
+    (channels-last) input.
 
     One conv runs K3 per frame; two or more run as one K4 call per frame,
-    which reads ``x`` once for all of them.  The backward is K3 on the
-    flipped taps for dx and an f32 wgrad.  On a CPU tensor every step runs
-    the kernels' plain versions.  Returns one NCHW output per conv.
+    which reads ``x`` once for all of them.  Where a gradient is needed the
+    calls go through ``DepthwiseBranches`` (its backward is K3 on the
+    flipped taps for dx and an f32 wgrad); otherwise straight to the
+    kernels' custom ops, so an exported graph holds the ops and no autograd
+    Function.  On a CPU tensor every step runs the kernels' plain versions.
+    Returns one NCHW output per conv.
     """
     # (C, 1, 3, 3) -> (3, 3, 1, C) -> (9, C), tap-major
     w9s = torch.stack([c.weight.permute(2, 3, 1, 0).reshape(9, -1) for c in convs])
     w9s = w9s.to(torch.promote_types(w9s.dtype, torch.float32))
     dilations = tuple(c.dilation[0] for c in convs)
     x = x.permute(0, 2, 3, 1).contiguous()  # no copy for a channels-last x
-    ys = DepthwiseBranches.apply(x, w9s, dilations)
+    if torch.is_grad_enabled() and (x.requires_grad or w9s.requires_grad):
+        ys = DepthwiseBranches.apply(x, w9s, dilations)
+    else:
+        ys = depthwise_branches(x, w9s, dilations)
     outs = []
     for y, conv in zip(ys, convs):
         y = y.permute(0, 3, 1, 2)

@@ -12,6 +12,14 @@ all at once, and waits for them together.
 A source may carry several C entry points, each its own
 :class:`CudaKernel`; they share one library and one ``nvcc``.
 
+The launching wrappers of K2, K3 and K4 are operators of the
+``torch.library`` namespace ``vss_torch`` (:data:`OPS`, defined by their
+modules with a CUDA impl that launches the kernel, a CPU impl that runs the
+plain version and a fake impl that gives the output's shape and strides),
+so ``torch.export`` keeps each launch as one node of a graph.  The
+low-level ``Library`` API adds a few microseconds a call and imports
+nothing more.
+
 Each :class:`CudaKernel` keeps ``launches``, the number of kernel launches
 its wrapper made.  ``plain_on_cuda`` is a test hook: while it is set (see
 :func:`plain_versions`), the wrapper runs its plain PyTorch version on a CUDA
@@ -42,6 +50,7 @@ NVCC_FLAGS = (
 )
 
 _REGISTRY: List["CudaKernel"] = []
+OPS = torch.library.Library("vss_torch", "FRAGMENT")
 
 
 def nvcc_path() -> str:

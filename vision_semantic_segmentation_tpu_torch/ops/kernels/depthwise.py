@@ -37,6 +37,18 @@ dy_b * x shifted by tap t``, is plain f32 tensor code in this port
 by the tensor's device, as the wrappers do, so on the CPU the Function runs
 its formulas on the plain versions.
 
+Operators: K3 and K4 launch through the ``torch.library`` operators
+``vss_torch::depthwise3x3`` ((1, H, W, C) -> (1, H, W, C)) and
+``vss_torch::aspp_depthwise3x3_multi`` ((1, H, W, C) -> (n, H, W, C), the
+branches stacked).  Their CUDA impls launch the kernels and count the
+launches, their CPU impls are the plain versions, and their fake impls give
+the outputs' shapes and (contiguous) strides, so ``torch.export`` keeps each
+launch as one node of an exported graph.  Under ``no_grad``,
+``models/layers.py::depthwise_convs`` calls them frame by frame
+(:func:`depthwise_branches`) without :class:`DepthwiseBranches`; a call
+that needs a gradient goes through the Function on the card, and on the CPU
+through autograd of the plain version.
+
 Note on bf16: the JAX package's default depthwise path (the shifted form,
 ``models/layers.py::ShiftedDepthwiseConv``) accumulates in the compute
 dtype; the port follows the TPU kernel and accumulates in f32, so in bf16
@@ -52,7 +64,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._lib import CudaKernel, ptr, uses_plain
+from ._lib import OPS, CudaKernel, ptr, uses_plain
 
 # K3's C signature, shared by the column-major kernels of depthwise_hoist.py:
 # x, w, y, H, W, C, dilation, dtype, plan, stream
@@ -287,24 +299,85 @@ def depthwise3x3_dilated(x: torch.Tensor, kernel: torch.Tensor, dilation: int) -
     return _k3(x, w9, dilation)
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _k3(x: torch.Tensor, w9: torch.Tensor, dilation: int) -> torch.Tensor:
-    """K3 (or its plain version on the CPU) on one frame, outside autograd."""
-    if uses_plain(KERNEL, x):
+    """K3 (its op) on one frame, outside ``DepthwiseBranches``.  On the CPU a
+    call that needs a gradient runs the plain version itself, so autograd
+    sees its graph."""
+    if uses_plain(KERNEL, x) and _needs_grad(x, w9):
+        return depthwise3x3_dilated_plain(x, w9, dilation)
+    return torch.ops.vss_torch.depthwise3x3(x.contiguous(), w9, int(dilation))
+
+
+def _k4(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int]) -> List[torch.Tensor]:
+    """K4 (its op) on one frame, outside ``DepthwiseBranches``; the CPU's
+    gradient route as :func:`_k3`'s."""
+    if uses_plain(MULTI_KERNEL, x) and _needs_grad(x, w9s):
+        return aspp_depthwise3x3_multi_plain(x, w9s, dilations)
+    y = torch.ops.vss_torch.aspp_depthwise3x3_multi(x.contiguous(), w9s,
+                                                     [int(d) for d in dilations])
+    return [y[b : b + 1] for b in range(len(dilations))]
+
+
+def _k3_cuda(x: torch.Tensor, w9: torch.Tensor, dilation: int) -> torch.Tensor:
+    if KERNEL.plain_on_cuda:
         return depthwise3x3_dilated_plain(x, w9, dilation)
     _, h, w, c = x.shape
-    x = x.contiguous()
     plan = depthwise_plan(h, w, c, dilation, x.element_size(), aligned=pointers_aligned(x, w9))
     return launch_depthwise(KERNEL, x, w9, dilation, plan)
 
 
-def _k4(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int]) -> List[torch.Tensor]:
-    """K4 (or its plain version on the CPU) on one frame, outside autograd."""
-    if uses_plain(MULTI_KERNEL, x):
-        return aspp_depthwise3x3_multi_plain(x, w9s, dilations)
+def _k4_cuda(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
+    if MULTI_KERNEL.plain_on_cuda:
+        return torch.cat(aspp_depthwise3x3_multi_plain(x, w9s, dilations))
     _, h, w, c = x.shape
-    x = x.contiguous()
     plan = aspp_plan(h, w, c, dilations, x.element_size(), aligned=x.data_ptr() % 16 == 0)
-    return launch_multi(x, w9s, dilations, plan)
+    return _launch_multi(x, w9s, dilations, plan)
+
+
+def _k4_cpu(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
+    return torch.cat(aspp_depthwise3x3_multi_plain(x, w9s, dilations))
+
+
+OPS.define("depthwise3x3(Tensor x, Tensor w9, int dilation) -> Tensor")
+OPS.impl("depthwise3x3", _k3_cuda, "CUDA")
+OPS.impl("depthwise3x3", depthwise3x3_dilated_plain, "CPU")
+OPS.define("aspp_depthwise3x3_multi(Tensor x, Tensor w9s, int[] dilations) -> Tensor")
+OPS.impl("aspp_depthwise3x3_multi", _k4_cuda, "CUDA")
+OPS.impl("aspp_depthwise3x3_multi", _k4_cpu, "CPU")
+
+
+@torch.library.register_fake("vss_torch::depthwise3x3", lib=OPS)
+def _k3_fake(x, w9, dilation):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@torch.library.register_fake("vss_torch::aspp_depthwise3x3_multi", lib=OPS)
+def _k4_fake(x, w9s, dilations):
+    return x.new_empty((len(dilations), *x.shape[1:]))
+
+
+def depthwise_branches(x: torch.Tensor, w9s: torch.Tensor,
+                       dilations: Sequence[int]) -> List[torch.Tensor]:
+    """``y_b = depthwise3x3(x, w_b, d_b)`` for a batch, frame by frame (K3
+    for one branch, K4 for several), outside autograd: the forward of
+    :class:`DepthwiseBranches`, and what a ``no_grad`` caller runs."""
+    if x.ndim != 4 or not x.dtype.is_floating_point:
+        raise ValueError(f"NHWC float batch expected, got {tuple(x.shape)} {x.dtype}")
+    n = len(dilations)
+    if not 1 <= n <= MAX_BRANCHES or w9s.shape != (n, 9, x.shape[-1]):
+        raise ValueError(f"weights {tuple(w9s.shape)} for {n} dilations of C={x.shape[-1]}")
+    w9s = w9s.to(_sum_dtype(x)).contiguous()
+    outs = [[] for _ in dilations]
+    for i in range(x.shape[0]):
+        frame = x[i : i + 1]
+        ys = [_k3(frame, w9s[0], dilations[0])] if n == 1 else _k4(frame, w9s, dilations)
+        for b, y in enumerate(ys):
+            outs[b].append(y)
+    return [o[0] if len(o) == 1 else torch.cat(o) for o in outs]
 
 
 def launch_depthwise(
@@ -370,6 +443,12 @@ def launch_multi(
     """Launch K4 on a contiguous CUDA ``x`` and (n, 9, C) f32 ``w9s`` with a
     given plan (the wrapper's, or one with another budget or channel group;
     the kernel refuses a plan that does not match the shapes)."""
+    return list(_launch_multi(x, w9s, dilations, plan).split(1))
+
+
+def _launch_multi(x: torch.Tensor, w9s: torch.Tensor, dilations: Sequence[int],
+                  plan: AsppPlan) -> torch.Tensor:
+    """K4's launch; the branches stacked, (n, H, W, C)."""
     _check_input(x)
     _, h, w, c = x.shape
     n = len(dilations)
@@ -385,7 +464,7 @@ def launch_multi(
     args = plan.c_args()
     MULTI_KERNEL.launch(ptr(x), ptr(w9s), ptr(y), h, w, c, n, ctypes.cast(dil, ctypes.c_void_p),
                         _DTYPES[x.dtype], ctypes.cast(args, ctypes.c_void_p))
-    return [y[b : b + 1] for b in range(n)]
+    return y
 
 
 def depthwise_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -425,21 +504,10 @@ class DepthwiseBranches(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w9s: torch.Tensor, dilations: Tuple[int, ...]):
-        if x.ndim != 4 or not x.dtype.is_floating_point:
-            raise ValueError(f"NHWC float batch expected, got {tuple(x.shape)} {x.dtype}")
-        n = len(dilations)
-        if not 1 <= n <= MAX_BRANCHES or w9s.shape != (n, 9, x.shape[-1]):
-            raise ValueError(f"weights {tuple(w9s.shape)} for {n} dilations of C={x.shape[-1]}")
-        w9s = w9s.to(_sum_dtype(x)).contiguous()
-        outs = [[] for _ in dilations]
-        for i in range(x.shape[0]):
-            frame = x[i : i + 1]
-            ys = [_k3(frame, w9s[0], dilations[0])] if n == 1 else _k4(frame, w9s, dilations)
-            for b, y in enumerate(ys):
-                outs[b].append(y)
-        ctx.save_for_backward(x, w9s)
+        ys = depthwise_branches(x, w9s, dilations)
+        ctx.save_for_backward(x, w9s.to(_sum_dtype(x)).contiguous())
         ctx.dilations = tuple(dilations)
-        return tuple(o[0] if len(o) == 1 else torch.cat(o) for o in outs)
+        return tuple(ys)
 
     @staticmethod
     def backward(ctx, *dys):

@@ -6,15 +6,21 @@ H100 it is bound by bytes (read grid and obs, write grid: 3 * C * 4 bytes
 per cell).  The kernel takes E by value in its parameter space and moves
 four cells per thread as 16-byte vectors; the C * C products stay in
 registers, and no (C, H*W) delta is ever materialised.
+
+The launch is the operator ``vss_torch::evidence_fold_add`` (it mutates
+``grid``; its CUDA impl launches K2 and counts the launch, its CPU impl is
+the plain version), so ``torch.export`` keeps it as one node of an
+exported frame step (``runtime/export.py``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from ._lib import CudaKernel, ptr, uses_plain
+from ._lib import OPS, CudaKernel, ptr, uses_plain
 
 KERNEL = CudaKernel(
     "evidence_fold_add", "fold.cu", "evidence_fold_add",
@@ -52,13 +58,38 @@ def evidence_fold_add_(grid: torch.Tensor, obs: torch.Tensor, evidence) -> torch
         raise ValueError("evidence_fold_add_ takes float32 grid and obs")
     if obs.device != grid.device:
         raise ValueError("grid and obs must share a device")
-    if uses_plain(KERNEL, grid):
-        return evidence_fold_add_plain(grid, obs, e)
-    if not (grid.is_contiguous() and obs.is_contiguous()):
-        raise ValueError("evidence_fold_add_ needs contiguous grid and obs")
-    if num_cls > MAX_CLASSES:
-        raise ValueError(f"evidence_fold_add_ takes at most {MAX_CLASSES} classes")
-    # E is read on the host by the launcher (kernel parameter space)
-    KERNEL.launch(ptr(grid), ptr(obs), ctypes.c_void_p(e.ctypes.data), num_cls,
-                  grid[0].numel())
+    if not uses_plain(KERNEL, grid):
+        if not (grid.is_contiguous() and obs.is_contiguous()):
+            raise ValueError("evidence_fold_add_ needs contiguous grid and obs")
+        if num_cls > MAX_CLASSES:
+            raise ValueError(f"evidence_fold_add_ takes at most {MAX_CLASSES} classes")
+    torch.ops.vss_torch.evidence_fold_add(grid, obs, [float(v) for v in e.reshape(-1)])
     return grid
+
+
+def _evidence(grid: torch.Tensor, evidence: Sequence[float]) -> np.ndarray:
+    return np.asarray(evidence, dtype=np.float32).reshape(grid.shape[0], grid.shape[0])
+
+
+def _fold_cuda(grid: torch.Tensor, obs: torch.Tensor, evidence: Sequence[float]) -> None:
+    e = _evidence(grid, evidence)
+    if KERNEL.plain_on_cuda:
+        evidence_fold_add_plain(grid, obs, e)
+        return
+    # E is read on the host by the launcher (kernel parameter space)
+    KERNEL.launch(ptr(grid), ptr(obs), ctypes.c_void_p(e.ctypes.data), grid.shape[0],
+                  grid[0].numel())
+
+
+def _fold_cpu(grid: torch.Tensor, obs: torch.Tensor, evidence: Sequence[float]) -> None:
+    evidence_fold_add_plain(grid, obs, _evidence(grid, evidence))
+
+
+OPS.define("evidence_fold_add(Tensor(a!) grid, Tensor obs, float[] evidence) -> ()")
+OPS.impl("evidence_fold_add", _fold_cuda, "CUDA")
+OPS.impl("evidence_fold_add", _fold_cpu, "CPU")
+
+
+@torch.library.register_fake("vss_torch::evidence_fold_add", lib=OPS)
+def _fold_fake(grid, obs, evidence) -> None:
+    return None

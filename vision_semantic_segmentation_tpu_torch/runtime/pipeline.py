@@ -13,8 +13,10 @@ composes the palette write (ref node:114) with the engine's palette match
 (ref mapping.py:414-424).
 
 On the card the forward's ASPP atrous depthwise convs run K4 (one call for
-all branches), the update's fold runs K2, and ``MappingReplay.finalize``
-renders with K1.
+all branches; Xception's 60 stride-1 depthwise convs run K3), the update's
+fold runs K2 (under ``FOLD_METHOD 'matmul'``), and ``MappingReplay.finalize``
+renders with K1.  :meth:`FusedFramePipeline.compile_sequence_runner` runs
+the step exported by ``torch.export`` (``runtime/export.py``).
 """
 from __future__ import annotations
 
@@ -114,8 +116,13 @@ class FusedFramePipeline:
         return self.engine.init_grid()
 
     @torch.no_grad()
-    def segment(self, frame_u8: torch.Tensor, camera: str = "camera1") -> torch.Tensor:
-        """Raw (H, W, 3) uint8 frame -> (1, C, h', w') logits (ref node:82-110)."""
+    def segment(self, frame_u8: torch.Tensor, camera: str = "camera1",
+                params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Raw (H, W, 3) uint8 frame -> (1, C, h', w') logits (ref node:82-110).
+
+        ``params`` (a state dict) replaces the network's own weights for this
+        call (``torch.func.functional_call``; the exported step's weights
+        are its inputs)."""
         x = frame_u8
         undistort_map = self._undistort_maps.get(camera)
         if undistort_map is not None:
@@ -126,6 +133,9 @@ class FusedFramePipeline:
         xf = (x.float() / 255.0 - self._mean) / self._std
         # (H, W, 3) is already channels-last memory for the NCHW view
         xf = xf.permute(2, 0, 1)[None].to(self.compute_dtype)
+        if params is not None:
+            return torch.func.functional_call(self.model, params, (xf,),
+                                              {"upsample_pred": self.upsample_pred})
         return self.model(xf, upsample_pred=self.upsample_pred)
 
     def _pointwise_for(self, camera: str, image_hw, velodyne_frame: bool):
@@ -141,11 +151,13 @@ class FusedFramePipeline:
 
     @torch.no_grad()
     def step(self, grid, frame_u8, pcd, valid, position, quaternion,
-             camera: str = "camera1", pcd_frame_id: str = ""):
-        """Fuse one raw frame into ``grid`` (in place); returns (grid, labels)."""
+             camera: str = "camera1", pcd_frame_id: str = "",
+             params: Optional[Mapping[str, torch.Tensor]] = None):
+        """Fuse one raw frame into ``grid`` (in place); returns (grid, labels).
+        ``params``: weights for this call (see :meth:`segment`)."""
         as_t = self.engine.as_tensor
         frame_u8 = as_t(frame_u8, torch.uint8)
-        logits = self.segment(frame_u8, camera)
+        logits = self.segment(frame_u8, camera, params)
         net_labels = torch.argmax(logits, dim=1)[0].to(torch.int32)
         # the channel image stays at decoder resolution; the engine gathers
         # with nearest-downscaled indices
@@ -187,3 +199,16 @@ class FusedFramePipeline:
                 camera=camera, pcd_frame_id=pcd_frame_id,
             )
         return grid
+
+    def compile_sequence_runner(self, camera: str = "camera1",
+                                image_hw: Tuple[int, int] = (1440, 1920),
+                                pcd_frame_id: str = "", window: int = 16) -> Callable:
+        """``run(grid, frames) -> grid`` for windows of exactly ``window``
+        frames, over this pipeline's step exported by ``torch.export`` at
+        ``image_hw`` (the program ``compile`` writes, without the file;
+        JAX ``compile_sequence_runner``).  The runner takes the network's
+        current weights and updates the grid in place."""
+        from .export import runner_from_program, trace_frame_step
+
+        program, meta = trace_frame_step(self, image_hw, window, camera, pcd_frame_id)
+        return runner_from_program(program, meta, self.model.state_dict())

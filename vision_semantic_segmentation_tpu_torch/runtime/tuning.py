@@ -1,13 +1,24 @@
-"""Measurement helpers shared by ``profile`` and (later) ``autotune``.
+"""Workload autotuner for the grid update, and the measurement helpers it
+shares with ``profile`` and the serving sweep.
 
-Port of the helpers of ``vision_semantic_segmentation_tpu/runtime/tuning.py``
-that ``runtime/profiling.py`` uses: a seeded random network
-(:func:`init_state_dict`), synthetic frame windows drawn on the device
-(:func:`generate_windows`), the fused runner's timing
-(:func:`time_fused_runner`) and the ``'auto'`` distortion rule
-(:func:`_resolve_distortion`).  The autotuner itself (``tune``,
-``overlay_yaml``, ``write_overlay``) waits for the ``autotune`` command
-(ROADMAP queue 1 item 5).
+Port of ``vision_semantic_segmentation_tpu/runtime/tuning.py``: a seeded
+random network (:func:`init_state_dict`), synthetic frame windows drawn on
+the device (:func:`generate_windows`), the fused runner's timing
+(:func:`time_fused_runner`), the ``'auto'`` distortion rule
+(:func:`_resolve_distortion`) and the autotuner (:func:`tune`,
+:func:`overlay_yaml`, :func:`write_overlay`; the ``autotune`` command).
+The tuner times the real ``FusedFramePipeline`` at the user's exact
+configuration for each ``MAPPING.FOLD_METHOD`` / ``SORT_METHOD`` (and
+optionally ``UPDATE_WINDOW``) candidate and writes a YAML overlay naming
+the fastest safe one:
+
+    python -m vision_semantic_segmentation_tpu_torch autotune --cfg exp.yaml --out tuned.yaml
+    python -m vision_semantic_segmentation_tpu_torch replay --cfg exp.yaml --cfg tuned.yaml ...
+
+The default combinations are three, not the JAX package's four: in the
+port the ``'matmul'`` fold sorts nothing, so ``('matmul', 'radix')`` would
+time the same program as ``('matmul', 'bitonic')``.  Naming it with
+``--folds``/``--sorts`` still runs it.
 
 Timing discipline: frames are made on the device (host staging would time
 the transport), each timed region starts and ends with
@@ -17,8 +28,9 @@ values, so seeded random weights stand in for a checkpoint.
 """
 from __future__ import annotations
 
+import math
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,7 +38,15 @@ from ..device import DeviceLike, resolve_device
 from ..mapping import PCD_ORIGIN_OFFSET
 from ..models.build import build_model
 
-__all__ = ["init_state_dict", "generate_windows", "time_fused_runner"]
+__all__ = ["DEFAULT_COMBOS", "init_state_dict", "generate_windows", "time_fused_runner", "tune",
+           "overlay_yaml", "write_overlay"]
+
+# (fold, sort) combinations; the default first, so a tie keeps it
+DEFAULT_COMBOS: Tuple[Tuple[str, str], ...] = (
+    ("matmul", "bitonic"),
+    ("scatter", "bitonic"),
+    ("scatter", "radix"),
+)
 
 
 def sync(device: torch.device) -> None:
@@ -146,3 +166,163 @@ def _resolve_distortion(cfg, engine, camera: str, image_hw: Tuple[int, int],
         and tuple(cam.im_size) == (image_hw[1], image_hw[0])  # im_size is (w, h)
     )
     return "points" if (undistort and calibrated) else "none"
+
+
+def _time_combo(
+    cfg,
+    state_dict: Mapping[str, torch.Tensor],
+    fold: str,
+    sort: str,
+    update_window: Optional[int],
+    windows: List[dict],
+    image_hw: Tuple[int, int],
+    window: int,
+    camera: str,
+    repeats: int,
+    distortion: str,
+    device: torch.device,
+) -> dict:
+    """Time the fused runner for one backend combination (JAX ``_time_combo``)."""
+    from ..mapping.engine import SemanticMappingEngine
+    from .pipeline import FusedFramePipeline
+
+    combo_cfg = cfg.clone()
+    combo_cfg.defrost()
+    combo_cfg.MAPPING.FOLD_METHOD = fold
+    combo_cfg.MAPPING.SORT_METHOD = sort
+    if update_window is not None:
+        combo_cfg.MAPPING.UPDATE_WINDOW = int(update_window)
+    engine = SemanticMappingEngine(combo_cfg, device=device)
+    # a pose-centred window smaller than a frame's worst-case footprint
+    # (~2.2 * RANGE_MAX / RESOLUTION cells) drops out-of-window points: faster
+    # but not the same map, so such rows never win (see tune)
+    uw_val = int(combo_cfg.MAPPING.UPDATE_WINDOW)
+    required = math.ceil(
+        2.2 * float(combo_cfg.MAPPING.PCD.RANGE_MAX) / float(combo_cfg.MAPPING.RESOLUTION))
+    grid_max = max(engine.grid_spec.height, engine.grid_spec.width)
+    lossy = 0 < uw_val < min(required, grid_max)
+    dist = _resolve_distortion(combo_cfg, engine, camera, image_hw, distortion)
+    pipeline = FusedFramePipeline(combo_cfg, state_dict, engine=engine, distortion=dist,
+                                  device=device)
+    fps, warmup_s = time_fused_runner(pipeline, windows, window, camera, repeats)
+    return {
+        "fold": fold,
+        "sort": sort,
+        "update_window": uw_val,
+        "tuned_update_window": update_window is not None,
+        "lossy": lossy,
+        "distortion": dist,
+        "fps": round(fps, 3),
+        "ms_per_frame": round(1000.0 / fps, 3),
+        "warmup_s": round(warmup_s, 1),
+    }
+
+
+def tune(
+    cfg,
+    variables=None,
+    image_hw: Tuple[int, int] = (1440, 1920),
+    window: int = 16,
+    n_windows: int = 2,
+    repeats: int = 3,
+    combos: Optional[Sequence[Tuple[str, str]]] = None,
+    update_windows: Optional[Sequence[int]] = None,
+    camera: str = "camera1",
+    distortion: str = "auto",
+    log=None,
+    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+    device: DeviceLike = "cuda",
+) -> Dict:
+    """Time every backend combination on ``device`` at ``cfg``'s shapes.
+
+    Args:
+        cfg: the app config whose MAPPING geometry and bucket define the
+          workload; rows override its FOLD/SORT/UPDATE_WINDOW values.
+        variables / state_dict: the network's weights (the JAX package's
+          flax variables, or a state dict); seeded random weights when
+          neither is given (timing does not depend on their values).
+        update_windows: UPDATE_WINDOW candidates (cells) swept as an outer
+          product with the combos; ``None`` keeps the cfg's value.
+        distortion: 'auto' | 'none' | 'points' (see _resolve_distortion).
+
+    Returns ``rows`` (one per combination, in run order), ``best`` (the
+    highest fps among rows that keep every point: an update window smaller
+    than a frame's worst-case footprint drops points and is timed for
+    information only; the earlier row wins a tie, so the defaults survive
+    a wash) and the workload descriptor.  Raises ``ValueError`` when every
+    swept UPDATE_WINDOW candidate is lossy.
+    """
+    from ..models.convert import flax_to_state_dict
+
+    dev = resolve_device(device)
+    if state_dict is None:
+        state_dict = (flax_to_state_dict(variables) if variables is not None
+                      else init_state_dict(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device=dev))
+    windows = generate_windows(cfg, image_hw, window, n_windows, device=dev)
+    combos = tuple(combos) if combos else DEFAULT_COMBOS
+    uw_candidates: Sequence[Optional[int]] = tuple(update_windows) if update_windows else (None,)
+
+    rows = []
+    for uw in uw_candidates:
+        for fold, sort in combos:
+            row = _time_combo(cfg, state_dict, fold, sort, uw, windows, image_hw, window,
+                              camera, repeats, distortion, dev)
+            rows.append(row)
+            if log:
+                log(
+                    f"fold={row['fold']:<7} sort={row['sort']:<7} "
+                    f"update_window={row['update_window']:<5} "
+                    f"{row['fps']:8.2f} fps  ({row['ms_per_frame']:.2f} ms/frame, "
+                    f"warmup {row['warmup_s']:.0f}s)"
+                    + ("  [LOSSY: drops out-of-window points]" if row["lossy"] else "")
+                )
+    safe = [r for r in rows if not r["lossy"]]
+    if not safe and update_windows:
+        raise ValueError(
+            "every UPDATE_WINDOW candidate is lossy at this config "
+            "(needs >= ceil(2.2 * PCD.RANGE_MAX / RESOLUTION) cells, or 0 "
+            "for the dense update) — add a safe candidate"
+        )
+    if not safe:
+        # no sweep asked for and the cfg's own UPDATE_WINDOW is lossy: rank
+        # the backends at that setting all the same, and say so
+        if log:
+            log("warning: cfg's UPDATE_WINDOW drops out-of-window points "
+                "at PCD.RANGE_MAX — ranking backends at that setting")
+        safe = rows
+    best = max(safe, key=lambda r: r["fps"])
+    return {
+        "rows": rows,
+        "best": best,
+        "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "image_hw": list(image_hw),
+        "window": window,
+        "n_windows": n_windows,
+        "point_bucket": int(cfg.MAPPING.POINT_BUCKET),
+        "boundary": [list(b) for b in cfg.MAPPING.BOUNDARY],
+        "resolution": float(cfg.MAPPING.RESOLUTION),
+    }
+
+
+def overlay_yaml(result: Dict) -> str:
+    """The winning combination as a merge-ready yacs YAML overlay."""
+    best = result["best"]
+    h, w = result["image_hw"]
+    lines = [
+        f"# autotuned on {result['device_kind']}: {best['fps']} fps at "
+        f"{h}x{w}, window {result['window']}, "
+        f"bucket {result['point_bucket']}, grid "
+        f"{result['boundary']} @ {result['resolution']} m",
+        "MAPPING:",
+        f"  FOLD_METHOD: {best['fold']}",
+        f"  SORT_METHOD: {best['sort']}",
+    ]
+    if best.get("tuned_update_window"):
+        lines.append(f"  UPDATE_WINDOW: {best['update_window']}")
+    return "\n".join(lines) + "\n"
+
+
+def write_overlay(result: Dict, path: str) -> str:
+    with open(path, "w") as f:
+        f.write(overlay_yaml(result))
+    return path
