@@ -107,7 +107,10 @@ Phases (any failure raises, so the exit code is non-zero):
    OS16 at 144x192, 8 train and 8 held-out views, at most 300 steps), then
    ``pipeline --fused`` over the 90-frame golden bag, scored against
    ``truth.npy`` with the floors of ``tests/test_e2e_golden.py`` (road 0.88,
-   crosswalk 0.92, lane 0.80, mIoU 0.87).
+   crosswalk 0.92, lane 0.80, mIoU 0.87).  Phase 7 starts by seeding the
+   global CUDA generator with 12345 and drawing 2**26 dropout elements from
+   it, which no earlier phase draws: the golden trainer seeds its own
+   dropout, so its floors must hold whatever ran before.
 
 8. The host-side commands at full width (outputs under the git-ignored
    ``build/chip_smoke_host/``; runs after phase 6 and before phase 7, on
@@ -153,7 +156,7 @@ Phases (any failure raises, so the exit code is non-zero):
    decoder, ms a cloud for both, and run (``native_io.calls``).
 
 10. The serving tools (outputs under the git-ignored
-   ``build/chip_smoke_serving/``; last, after phase 9(d), on phase 3's
+   ``build/chip_smoke_serving/``; after phase 9(d), on phase 3's
    network rebuilt from phase 5's ``weights.pth`` and its window made
    again from its seed).  (a) Xception65 (``MODEL.TYPE "Xception"``, OS16,
    bf16, seeded weights, BatchNorm statistics from one frame) through
@@ -183,6 +186,26 @@ Phases (any failure raises, so the exit code is non-zero):
    1440x1920, then quality at ResNet-50 OS16 scale 0.1 on the golden scene
    (at most 300 training steps): not partial, a recommended point, the
    overlay and the JSON written.
+
+11. Parallel replay (``parallel/``; outputs under the git-ignored
+   ``build/chip_smoke_parallel/``; last) over phase 5's 8 pre-segmented
+   1440x1920 frames (bucket 2**17, the 5x2000x2000 grid) against phase 5's
+   sequential ``replay`` grid (within 1e-3, maps on at most 1e-3 of the
+   cells).  Logical shards are one card repeated in the mesh; they run one
+   after another.  Each run's launches are counted alone.  (a)
+   ``main(["replay", "--frame-parallel", ...])`` on the card's own mesh of
+   one device: K2 8, K1 1; ``--save-grid``/``--resume-grid`` over two halves
+   equal one run.  (b) ``run_frames_parallel`` over 4 and 3 logical shards
+   (3 pads one no-op frame): K2 8 and 9, each also against its own plain
+   run.  (c) ``MAPPING.GRID_SHARDS 4`` sequential replay over 4 logical
+   shards, without a window and with ``UPDATE_WINDOW`` 1100 (slabs straddle
+   the bands): K2 32, each grid against the unsharded replay at its
+   configuration (within 1e-4), the bands' shapes and bytes.  (d)
+   ``frame_parallel`` with ``GRID_SHARDS 2`` over a (2, 2) mesh: K2 16.  (e)
+   The full-route 5x5000x7000 grid (0.2 m, ``UPDATE_WINDOW`` 512) in 4
+   bands of 175 MB against the unsharded engine at that configuration
+   (within 1e-4).  Frames/s of each, host clock, synchronised at both ends:
+   the counted run, then (b)-(e) three more.
 
 A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
@@ -226,6 +249,7 @@ from vision_semantic_segmentation_tpu_torch.models.convert import load_weights
 from vision_semantic_segmentation_tpu_torch.ops.colormap import MAPILLARY_19_PALETTE
 from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
 from vision_semantic_segmentation_tpu_torch.ops.resize import resize_area
+from vision_semantic_segmentation_tpu_torch.parallel import local_devices
 from vision_semantic_segmentation_tpu_torch.train.transforms import Compose, Normalize, ToTensor
 from vision_semantic_segmentation_tpu_torch.utils import image_io
 from vision_semantic_segmentation_tpu_torch.runtime import (
@@ -679,15 +703,16 @@ def check_launches(what: str, launches: dict, k4: int = WINDOW, k2: int = WINDOW
         raise AssertionError(f"{what}: launch counts {launches} != expected {expected}")
 
 
-def compare_with_plain(what: str, grid, color_map, grid_plain, map_plain) -> None:
+def compare_with_plain(what: str, grid, color_map, grid_plain, map_plain,
+                       against: str = "the plain path") -> None:
     diff = float((grid - grid_plain).abs().max())
     mismatch = float((color_map != map_plain).any(-1).mean())
-    print(f"{what}: kernels vs plain path: grid max |diff| {diff}, map mismatch {mismatch}",
+    print(f"{what}: against {against}: grid max |diff| {diff}, map mismatch {mismatch}",
           flush=True)
     if not torch.allclose(grid, grid_plain, atol=1e-3):
-        raise AssertionError(f"{what}: grid differs from the plain path by {diff}")
+        raise AssertionError(f"{what}: grid differs from {against} by {diff}")
     if mismatch > 1e-3:
-        raise AssertionError(f"{what}: map differs from the plain path on {mismatch} of cells")
+        raise AssertionError(f"{what}: map differs from {against} on {mismatch} of cells")
     if not bool(torch.isfinite(grid).all()) or float(grid.sum()) <= 0:
         raise AssertionError(f"{what}: grid not finite or empty (sum {float(grid.sum())})")
     if not (color_map.sum(-1) > 0).any():
@@ -1935,6 +1960,12 @@ def training_phase(smi: str):
     scene.  Returns the golden segmenter's weights and the scene's frames."""
     if TRAIN.exists():
         shutil.rmtree(TRAIN)
+    # the golden trainer seeds its own dropout: draw from the global CUDA
+    # generator what no earlier phase draws, and the golden floors must hold
+    torch.cuda.manual_seed(12345)
+    torch.nn.functional.dropout(torch.ones(1 << 26, device="cuda"), 0.5)
+    print("phase 7: the global CUDA generator seeded 12345 and drawn for 2**26 dropout "
+          "elements before training", flush=True)
     t0 = time.perf_counter()
     grad_checks(smi)
     weights = train_phase(smi)
@@ -2516,11 +2547,9 @@ def serving_sweep_phase(smi: str) -> None:
 
 
 def serving_tools_phase(smi: str) -> dict:
-    """Phase 10 (a)-(d), last: phase 7's golden training draws its ASPP
-    dropout from the global RNG, so the phases before it run as they did.
-    (b) and (c) rebuild phase 3's network from phase 5's ``weights.pth`` and
-    its window from the same seed.  Returns K3's kernels-line entry for
-    (a)'s window."""
+    """Phase 10 (a)-(d), after phase 9(d).  (b) and (c) rebuild phase 3's
+    network from phase 5's ``weights.pth`` and its window from the same
+    seed.  Returns K3's kernels-line entry for (a)'s window."""
     shutil.rmtree(SERVING, ignore_errors=True)
     SERVING.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -2539,6 +2568,174 @@ def serving_tools_phase(smi: str) -> dict:
     print(f"phase 10: (a) {clock_a - t0:.1f} s, (b) {clock_b - clock_a:.1f} s, (c) "
           f"{clock_c - clock_b:.1f} s, (d) {time.perf_counter() - clock_c:.1f} s", flush=True)
     return k3
+
+
+# -- phase 11: parallel replay ---------------------------------------------------------
+PARALLEL = REPO / "build" / "chip_smoke_parallel"
+# (e): the full-route grid of ref README.md:173-177, 5x5000x7000 f32 at 0.2 m
+FULL_ROUTE = {"BOUNDARY": [[0, 1000], [0, 1400]], "RESOLUTION": 0.2, "UPDATE_WINDOW": 512}
+
+
+def parallel_cfg(name: str, grid_shards: int = 1, **mapping):
+    """The main path's mapping configuration with ``GRID_SHARDS`` and other
+    ``MAPPING`` keys set, writing under ``build/chip_smoke_parallel/``."""
+    cfg = get_cfg_defaults()
+    cfg.OUTPUT_DIR = str(PARALLEL / name)
+    cfg.MAPPING.GRID_SHARDS = grid_shards
+    for key, value in mapping.items():
+        setattr(cfg.MAPPING, key, value)
+    return cfg
+
+
+def timed(fn):
+    """``fn()`` and its seconds, host clock, synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(what: str, fn, k2: int, k1: int = 0, repeats: int = 3):
+    """Run ``fn`` with the launch counts zeroed just before and read just
+    after (K2 ``k2`` and K1 ``k1`` times, nothing else), then ``repeats``
+    times more.  Returns the first run's result and every run's seconds."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out, seconds = timed(fn)
+    check_launches(what, launches_now(), k4=0, k2=k2, k1=k1)
+    return out, [seconds] + [timed(fn)[1] for _ in range(repeats)]
+
+
+def map_of(grid) -> np.ndarray:
+    return render.unpack_rgba_image(render.render_bev_map_fused(grid, LABEL_COLORS)).cpu().numpy()
+
+
+def fps(seconds: list, frames: int = WINDOW) -> str:
+    """Frames/s of each run of ``frames`` frames, the counted run first."""
+    return f"{', '.join(f'{frames / t:.3f}' for t in seconds)} frames/s"
+
+
+def parallel_cli(ref: dict, smi: str) -> None:
+    """(a) ``replay --frame-parallel`` on the card's own mesh; with
+    ``--save-grid``/``--resume-grid`` over two halves."""
+    weights = CLI / "weights.pth"
+
+    def replay(name, *args):
+        return cli_main(["replay", "--cfg", overlay(name, weights), "--frame-parallel", *args])
+
+    _, seconds = counted("CLI replay --frame-parallel", lambda: replay(
+        "replay_fp", "--input-dir", str(CLI / "replay_all"),
+        "--save-grid", str(CLI / "replay_fp_grid.npz")), k2=WINDOW, k1=1, repeats=0)
+    with np.load(CLI / "replay_fp_grid.npz") as z:
+        grid = torch.from_numpy(z["grid"]).cuda()
+    print(f"11(a) CLI replay --frame-parallel over {[str(d) for d in local_devices('cuda')]}: "
+          f"{fps(seconds)}, the whole call (load, stage, fuse, psum, render, save) on {smi}; "
+          f"launches K2 {WINDOW}, K1 1", flush=True)
+    compare_with_plain("11(a) CLI replay --frame-parallel", grid,
+                       written_map("replay_fp", "global_map_combined.png"), ref["grid"],
+                       ref["map"], against="phase 5's sequential replay")
+    replay("replay_fp_first", "--input-dir", str(CLI / "replay_first"),
+           "--save-grid", str(CLI / "fp_first_half.npz"))
+    replay("replay_fp_second", "--input-dir", str(CLI / "replay_second"),
+           "--resume-grid", str(CLI / "fp_first_half.npz"), "--save-grid", str(CLI / "fp_both.npz"))
+    with np.load(CLI / "fp_both.npz") as z:
+        resumed = torch.from_numpy(z["grid"]).cuda()
+    diff = float((resumed - grid).abs().max())
+    print(f"11(a) --frame-parallel --save-grid then --resume-grid over two halves against one "
+          f"run: grid max |diff| {diff}", flush=True)
+    if not torch.allclose(resumed, grid, atol=1e-3):
+        raise AssertionError(f"resumed frame-parallel replay differs from one run by {diff}")
+
+
+def parallel_logical(frames: list, ref: dict, smi: str) -> None:
+    """(b) ``run_frames_parallel`` over 4 and 3 logical shards of cuda:0 (3
+    pads one no-op frame), against the sequential grid and its plain run."""
+    for n in (4, 3):
+        what = f"11(b) frame-parallel over {n} logical shards of cuda:0"
+        replay = MappingReplay(parallel_cfg(f"fp{n}"), device="cuda", devices=["cuda:0"] * n,
+                               frame_parallel=True)
+        padded = -(-len(frames) // n) * n
+        grid, seconds = counted(what, lambda: replay.run_frames_parallel(frames), k2=padded)
+        print(f"{what}: {fps(seconds)} on {smi}; launches K2 {padded} ({padded - len(frames)} "
+              "no-op frames)", flush=True)
+        color_map = map_of(grid)
+        compare_with_plain(what, grid, color_map, ref["grid"], ref["map"],
+                           against="phase 5's sequential replay")
+        with K.plain_versions():
+            plain = replay.run_frames_parallel(frames)
+            plain_map = map_of(plain)
+        compare_with_plain(what, grid, color_map, plain, plain_map)
+
+
+def parallel_grid_shards(frames: list, ref: dict, smi: str, route: bool = False) -> None:
+    """(c) ``MAPPING.GRID_SHARDS`` 4 over 4 logical shards of cuda:0, without
+    a window and with the main path's lossy 1100-cell window (slabs straddle
+    the 500-row bands); (e) with ``route``: the full-route 5x5000x7000 grid,
+    ``UPDATE_WINDOW`` 512, 4 bands of 175 MB.  Each against the unsharded
+    replay at its configuration (without a window: the sequential
+    ``run_frames`` of phase 5's replay)."""
+    configs = [("11(e) full route", FULL_ROUTE)] if route else [
+        ("11(c) GRID_SHARDS 4", {"UPDATE_WINDOW": 0}),
+        ("11(c) GRID_SHARDS 4, UPDATE_WINDOW 1100", {"UPDATE_WINDOW": 1100})]
+    for i, (what, mapping) in enumerate(configs):
+        tag = f"{'route' if route else 'gs'}{i}"
+        one = MappingReplay(parallel_cfg(f"{tag}_1", **mapping), device="cuda")
+        want, seconds_1 = counted(f"{what}, unsharded", lambda: one.run_frames(frames), k2=WINDOW)
+        replay = MappingReplay(parallel_cfg(f"{tag}_4", 4, **mapping), device="cuda",
+                               devices=["cuda:0"] * 4)
+        got, seconds_4 = counted(what, lambda: replay.run_frames(frames), k2=4 * WINDOW)
+        bands = [f"{tuple(b.shape)} {b.numel() * 4 / 1e6:.1f} MB on {b.device}" for b in got.bands]
+        grid = got.gather("cuda")
+        diff = float((grid - want).abs().max())
+        print(f"{what}: {fps(seconds_4)} against the unsharded replay's {fps(seconds_1)} on "
+              f"{smi}; launches K2 {4 * WINDOW} (unsharded {WINDOW}); bands {bands}; grid "
+              f"{tuple(grid.shape)} against the unsharded: max |diff| {diff}, sum "
+              f"{float(grid.sum()):.1f}", flush=True)
+        if not torch.allclose(grid, want, atol=1e-4) or float(grid.sum()) <= 0:
+            raise AssertionError(f"{what}: sharded grid differs from the unsharded by {diff}")
+        if not route and not mapping["UPDATE_WINDOW"]:
+            compare_with_plain(what, grid, map_of(grid), ref["grid"], ref["map"],
+                               against="phase 5's sequential replay")
+        del want, got, grid
+        torch.cuda.empty_cache()
+
+
+def parallel_composed(frames: list, ref: dict, smi: str) -> None:
+    """(d) frames over 2 'data' shards and grid rows over 2 'grid' shards of
+    cuda:0, one psum per band."""
+    what = "11(d) frame-parallel x GRID_SHARDS 2 over a (2, 2) mesh of cuda:0"
+    replay = MappingReplay(parallel_cfg("composed", 2), device="cuda", devices=["cuda:0"] * 4,
+                           frame_parallel=True)
+    got, seconds = counted(what, lambda: replay.run_frames_parallel(frames), k2=2 * WINDOW)
+    grid = got.gather("cuda")
+    print(f"{what}: {fps(seconds)} on {smi}; launches K2 {2 * WINDOW}; bands "
+          f"{[tuple(b.shape) for b in got.bands]}", flush=True)
+    compare_with_plain(what, grid, map_of(grid), ref["grid"], ref["map"],
+                       against="phase 5's sequential replay")
+
+
+def parallel_phase(smi: str) -> None:
+    """Phase 11: parallel replay at full width over phase 5's 8
+    pre-segmented 1440x1920 frames (bucket 2**17, the 5x2000x2000 grid),
+    against phase 5's sequential ``replay`` grid."""
+    shutil.rmtree(PARALLEL, ignore_errors=True)
+    PARALLEL.mkdir(parents=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print("phase 11: frames/s on the host clock, synchronised at both ends, a run of "
+          f"{WINDOW} frames each: the counted run first, then (b)-(e) three more", flush=True)
+    frames = load_frames(str(CLI / "replay_all" / "labels.npz"))
+    with np.load(CLI / "replay_grid.npz") as z:
+        ref = {"grid": torch.from_numpy(z["grid"]).cuda(),
+               "map": written_map("replay", "global_map_combined.png")}
+    parallel_cli(ref, smi)
+    parallel_logical(frames, ref, smi)
+    parallel_grid_shards(frames, ref, smi)
+    parallel_composed(frames, ref, smi)
+    parallel_grid_shards(frames, ref, smi, route=True)
+    print(f"phase 11 (parallel replay) {time.perf_counter() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
 def sweep(smi: str) -> None:
@@ -2697,6 +2894,8 @@ def main() -> None:
     k3 = serving_tools_phase(smi)
     entries = [k3 if e["name"] == k3["name"] else e for e in entries]
     clock(start, "phase 10 (serving tools)")
+    parallel_phase(smi)
+    clock(start, "phase 11 (parallel replay)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))

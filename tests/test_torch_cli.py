@@ -193,6 +193,36 @@ def test_replay(run, tmp_path):
     _assert_maps_match(ours, _png(run, "jax", "global_map_combined.png"))
 
 
+def test_replay_frame_parallel(run, tmp_path):
+    """``replay --frame-parallel``: the port on its devices (one ``cpu``
+    here), the JAX package over its 8; grid and map against the JAX
+    package's, and the port's map equal to its sequential replay's."""
+    _fresh_outputs(run)
+    inputs = tmp_path / "inputs"
+    inputs.mkdir()
+    colors = np.array(get_cfg_defaults().LABEL_COLORS, np.uint8)
+    labels = np.broadcast_to(np.roll(np.repeat(colors, 1920 // len(colors) + 1, axis=0)[:1920],
+                                     301, axis=0), (1440, 1920, 3)).copy()
+    io.save_frames([io.FrameRecord(**{**f.__dict__, "semantic_image": labels})
+                    for f in run["one"]], str(inputs / "seq.npz"))
+    maps = main(["replay", "--cfg", run["yamls"]["port"], "--input-dir", str(inputs),
+                 "--frame-parallel", "--save-grid", str(tmp_path / "port_grid"),
+                 "--device", "cpu"])
+    j_main(["replay", "--cfg", run["yamls"]["jax"], "--input-dir", str(inputs),
+            "--frame-parallel", "--save-grid", str(tmp_path / "jax_grid")])
+    grid = np.load(tmp_path / "port_grid.npz")["grid"]
+    assert grid.sum() > 0
+    np.testing.assert_allclose(grid, np.load(tmp_path / "jax_grid.npz")["grid"], atol=1e-5,
+                               rtol=0)
+    ours = _png(run, "port", "global_map_combined.png")
+    np.testing.assert_array_equal(ours, maps[0])
+    _assert_maps_match(ours, _png(run, "jax", "global_map_combined.png"))
+    _fresh_outputs(run)
+    sequential = main(["replay", "--cfg", run["yamls"]["port"], "--input-dir", str(inputs),
+                       "--device", "cpu"])
+    np.testing.assert_array_equal(sequential[0], maps[0])
+
+
 @pytest.mark.parametrize("bag", ["seq.npz", "tf.bag"])
 def test_pipeline_two_node(run, bag, monkeypatch):
     _fresh_outputs(run)

@@ -9,11 +9,17 @@ versions.  Tolerances: grids atol 1e-4 (the fold sums five products in
 another order); maps read back from disk through one reader, equal on all
 but 1e-3 of cells (the JAX package renders through its reference smooth on
 the CPU, the port through K1's plain version, as
-``tests/test_torch_pipeline.py`` holds).
+``tests/test_torch_pipeline.py`` holds).  Parallel replay
+(``MAPPING.GRID_SHARDS``, ``frame_parallel`` and both) runs the port on 8
+logical ``cpu`` shards beside the JAX package's 8 virtual devices: grids
+atol 1e-5 against the JAX package's; against the port's own sequential
+replay the JAX tests' tolerances (sharded atol 1e-4, and bit-equal here;
+frame-parallel rtol 1e-5, atol 1e-4).
 """
 import pickle
 
 import cv2
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,6 +30,7 @@ from vision_semantic_segmentation_tpu.runtime.hickle_io import dump_hickle
 from vision_semantic_segmentation_tpu.runtime.replay import MappingReplay as JaxReplay
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.mapping import PCD_ORIGIN_OFFSET
+from vision_semantic_segmentation_tpu_torch.parallel import ShardedGrid
 from vision_semantic_segmentation_tpu_torch.runtime import MappingReplay, io
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
@@ -207,10 +214,130 @@ def test_sequence_runner_is_cached_and_equals_steps(recordings):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("option", ["frame_parallel", "grid_shards"])
-def test_parallel_replay_refused(option, tmp_path):
-    cfg = _cfg(get_cfg_defaults, tmp_path, "port")
-    if option == "grid_shards":
-        cfg.MAPPING.GRID_SHARDS = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        MappingReplay(cfg, frame_parallel=option == "frame_parallel", device="cpu")
+def _sharded_cfg(make, root, sub, grid_shards):
+    cfg = _cfg(make, root, sub)
+    cfg.MAPPING.GRID_SHARDS = grid_shards
+    return cfg
+
+
+def _port_parallel(root, sub, grid_shards=1, frame_parallel=False):
+    """The port's replay over 8 logical cpu shards, as the JAX package's
+    over its 8 virtual devices."""
+    return MappingReplay(_sharded_cfg(get_cfg_defaults, root, sub, grid_shards), device="cpu",
+                         devices=["cpu"] * 8, frame_parallel=frame_parallel)
+
+
+def _jax_parallel(root, sub, grid_shards=1, frame_parallel=False):
+    return JaxReplay(_sharded_cfg(j_cfg_defaults, root, sub, grid_shards),
+                     frame_parallel=frame_parallel)
+
+
+def _records(seed, n):
+    return [io.FrameRecord(**f, stamp=float(i)) for i, f in enumerate(_frames(seed, n=n))]
+
+
+def test_grid_shards_replay_matches_jax(recordings, tmp_path):
+    """``MAPPING.GRID_SHARDS`` 4: sequential replay with the grid in 4 row
+    bands; the JAX package's, and the port's unsharded replay bit for bit."""
+    frames = _records(7, 5)
+    got = _port_parallel(tmp_path, "port", 4).run_frames(frames, window=2)
+    assert isinstance(got, ShardedGrid)
+    assert [tuple(b.shape) for b in got.bands] == [(5, 50, 200)] * 4
+    j_got = _jax_parallel(tmp_path, "jax", 4).run_frames(frames, window=2)
+    assert j_got.sharding.spec == jax.sharding.PartitionSpec(None, "grid")
+    grid = got.gather()
+    np.testing.assert_allclose(grid.numpy(), np.asarray(j_got), atol=1e-5, rtol=0)
+    want = recordings["replay"].run_frames(frames, window=2)
+    assert float(want.sum()) > 0
+    np.testing.assert_allclose(grid.numpy(), want.numpy(), atol=1e-4, rtol=0)
+    torch.testing.assert_close(grid, want, rtol=0, atol=0)  # bit for bit
+
+
+def test_frame_parallel_with_grid_shards_matches_jax(recordings, tmp_path):
+    """``frame_parallel`` with ``GRID_SHARDS`` 2: frames over 4 'data'
+    shards, rows over 2 'grid' shards, one psum per band."""
+    frames = _records(8, 8)
+    got = _port_parallel(tmp_path, "port", 2, True).run_frames_parallel(frames)
+    assert isinstance(got, ShardedGrid) and len(got.bands) == 2
+    j_got = _jax_parallel(tmp_path, "jax", 2, True).run_frames_parallel(frames)
+    np.testing.assert_allclose(got.gather().numpy(), np.asarray(j_got), atol=1e-5, rtol=0)
+    want = recordings["replay"].run_frames(frames).numpy()
+    assert want.sum() > 0
+    np.testing.assert_allclose(got.gather().numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("grid_shards", [1, 2])
+def test_frame_parallel_resume_adds_once(recordings, tmp_path, grid_shards):
+    """A resumed grid is added once, outside the psum (inside it would
+    count once a shard), as in the JAX package."""
+    frames = _records(9, 8)
+    replay = _port_parallel(tmp_path, "port", grid_shards, True)
+    base = recordings["replay"].run_frames(frames[:4])
+    fresh = replay.run_frames_parallel(frames[4:])
+    got = replay.run_frames_parallel(frames[4:], init_grid=base)
+    if grid_shards > 1:
+        fresh, got = fresh.gather(), got.gather()
+    np.testing.assert_allclose(got.numpy(), (base + fresh).numpy(), atol=1e-5, rtol=0)
+    j_replay = _jax_parallel(tmp_path, "jax", grid_shards, True)
+    j_got = j_replay.run_frames_parallel(frames[4:], init_grid=np.asarray(base))
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_got), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["shards_over_devices", "devices_do_not_split",
+                                  "heterogeneous", "no_frames"])
+def test_parallel_replay_refusals(case, tmp_path):
+    """Where the JAX package asserts, the port raises ``ValueError`` with the
+    same words; it never quietly runs unsharded."""
+    frames = _records(10, 2)
+    grid_shards = {"shards_over_devices": 16, "devices_do_not_split": 3}.get(case, 1)
+    if case == "heterogeneous":
+        frames[1].camera = "camera6"
+    if case == "no_frames":
+        frames = []
+    port = _port_parallel(tmp_path, "port", grid_shards, True)
+    jax_replay = _jax_parallel(tmp_path, "jax", grid_shards, True)
+    run = "run_frames" if case == "shards_over_devices" else "run_frames_parallel"
+    with pytest.raises(AssertionError) as j_err:
+        getattr(jax_replay, run)(frames)
+    with pytest.raises(ValueError) as err:
+        getattr(port, run)(frames)
+    assert str(err.value) == str(j_err.value)
+
+
+def test_grid_shards_continuous_replay_dir(recordings, tmp_path):
+    """``replay_dir`` threads a sharded grid through the files, saves it and
+    renders it (``save_grid``, ``resume_grid``, ``finalize`` gather it
+    once): equal to the JAX package's and to the unsharded replay."""
+    r = recordings
+    maps, saved = _continuous(_port_parallel(r["root"], "port_sharded", 4), r["root"],
+                              tmp_path, "port_sharded")
+    j_maps, j_saved = _continuous(_jax_parallel(r["root"], "jax_sharded", 4), r["root"],
+                                  tmp_path, "jax_sharded")
+    grid = r["replay"].engine.load_grid(saved).numpy()
+    np.testing.assert_allclose(grid, r["jreplay"].engine.load_grid(j_saved), atol=1e-5, rtol=0)
+    _assert_maps_match(maps[0], j_maps[0])
+    once = r["replay"].replay_dir(str(r["root"] / "all"), save_grid=str(tmp_path / "once.npz"))
+    np.testing.assert_allclose(grid, r["replay"].engine.load_grid(str(tmp_path / "once.npz")),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(maps[0], once[0])
+
+
+def test_frame_parallel_replay_file_and_fallback(recordings, tmp_path):
+    """``frame_parallel`` replays a homogeneous file data-parallel; a file
+    with two image shapes takes the sequential path, as in the JAX package."""
+    frames = _records(11, 4)
+    mixed = [io.FrameRecord(**{**f.__dict__}) for f in frames]
+    mixed[2].semantic_image = mixed[2].semantic_image[:720]
+    for name, part in (("even.npz", frames), ("mixed.npz", mixed)):
+        j_io.save_frames(part, str(tmp_path / name))
+    port = _port_parallel(tmp_path, "port", 1, True)
+    j_port = _jax_parallel(tmp_path, "jax", 1, True)
+    calls = []
+    run_parallel = port.run_frames_parallel
+    port.run_frames_parallel = lambda *a, **k: calls.append(1) or run_parallel(*a, **k)
+    for name in ("even.npz", "mixed.npz"):
+        got = port.replay_file(str(tmp_path / name), return_grid=True)
+        j_got = j_port.replay_file(str(tmp_path / name), return_grid=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(j_got), atol=1e-5, rtol=0)
+    assert calls == [1]  # the mixed file fell back to run_frames
+    torch.testing.assert_close(got, recordings["replay"].run_frames(mixed), rtol=0, atol=0)

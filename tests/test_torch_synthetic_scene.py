@@ -92,6 +92,24 @@ def test_train_segmenter_short(tmp_path):
     assert "backbone.conv1.weight" in sd and "aspp.global_avg_pool.1.bn.running_var" in sd
 
 
+def test_dropout_is_seeded_whatever_ran_before(tmp_path):
+    """ASPP's dropout draws from a fork of the default generator seeded by
+    the trainer: two runs with different draws from the global generators
+    before them save equal weights, bit for bit."""
+    frames, labels = _small_views(2)
+    weights = []
+    for seed in (3, 4):
+        torch.manual_seed(seed)
+        torch.nn.functional.dropout(torch.ones(10_000 * seed), 0.5)
+        path = str(tmp_path / f"seg_{seed}.pth")
+        S.train_segmenter(frames, labels, path, max_steps=2, min_steps=1,
+                          quality_floor=None, device="cpu")
+        weights.append(load_weights(path))
+    assert weights[0].keys() == weights[1].keys()
+    for key, value in weights[0].items():
+        assert torch.equal(value, weights[1][key]), key
+
+
 def test_quality_floor_reads_the_eval_step(tmp_path, monkeypatch):
     """The final floor reads the final weights through the evaluation step
     (running statistics, no update), never a train step."""

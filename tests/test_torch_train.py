@@ -521,5 +521,5 @@ def test_train_command_on_cpu(tmp_path):
 
 def test_trainer_refuses_multi_device(tmp_path):
     cfg = _dummy_cfg(tmp_path, ["TRAIN.SPATIAL_SHARDS", "2"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         Trainer(cfg, device="cpu")

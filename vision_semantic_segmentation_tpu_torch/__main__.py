@@ -6,6 +6,7 @@ flags:
 
     python -m vision_semantic_segmentation_tpu_torch replay   --cfg exp.yaml [--input-dir d]
                                                               [--resume-grid g] [--save-grid g]
+                                                              [--frame-parallel]
     python -m vision_semantic_segmentation_tpu_torch pipeline --cfg exp.yaml --bag seq.{npz,hkl,pkl,bag}
                                                               [--fused [--confidence]]
                                                               [--rate R [--decode-ahead]]
@@ -28,7 +29,10 @@ flags:
 
 Every command that runs the system takes ``--device {cuda,cpu}`` (default
 ``cuda``; without a card ``cuda`` raises, nothing falls back to the CPU).
-On the card, replay runs K2 per frame and K1 per map; ``pipeline`` adds K4
+On the card, replay runs K2 per frame and K1 per map (``--frame-parallel``
+fuses frames data-parallel over every local card, one partial grid each;
+``MAPPING.GRID_SHARDS`` row-shards the grid over that many cards, K2 per
+frame per band); ``pipeline`` adds K4
 per segmented frame (a planar ``MAPPING.DEPTH_METHOD`` runs no K2).  The
 two-node dataflow runs the network in ``MODEL.COMPUTE_DTYPE`` (bf16 by
 default); every fused path (``--fused``, with or without ``--rate``) runs
@@ -48,9 +52,9 @@ custom ops in it); ``autotune`` times the grid update's
 ``FOLD_METHOD``/``SORT_METHOD``/``UPDATE_WINDOW`` candidates and writes
 the winner as a YAML overlay (``runtime/tuning.py``); ``autotune
 --serving`` sweeps operating points for frames/s and golden-scene mIoU
-(``runtime/serving_pareto.py``).  Not ported yet: ``replay
---frame-parallel``, ``MAPPING.GRID_SHARDS``, ``MODEL.SPATIAL_SHARDS`` and
-data-parallel training (ROADMAP queue 1 item 6).
+(``runtime/serving_pareto.py``).  Not ported yet: data-parallel training
+(ROADMAP queue 1 item 4) and ``MODEL.SPATIAL_SHARDS`` / ``TRAIN.
+SPATIAL_SHARDS`` (item 5).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -89,7 +93,7 @@ def cmd_replay(args):
     cfg = _load_app_cfg(args.cfg)
     if args.input_dir:
         cfg.MAPPING.INPUT_DIR = args.input_dir
-    return MappingReplay(cfg, device=args.device).replay_dir(
+    return MappingReplay(cfg, device=args.device, frame_parallel=args.frame_parallel).replay_dir(
         resume_grid=args.resume_grid or None, save_grid=args.save_grid or None)
 
 
@@ -492,6 +496,8 @@ def main(argv=None):
     p = sub.add_parser("replay", help="offline deterministic mapping replay")
     add_cfg_and_device(p)
     p.add_argument("--input-dir", default="")
+    p.add_argument("--frame-parallel", action="store_true",
+                   help="fuse frames data-parallel across all devices (one psum)")
     p.add_argument("--resume-grid", default="", metavar="NPZ",
                    help="seed the evidence grid from a checkpoint (threads ONE grid "
                         "through all input files -> a single combined map)")

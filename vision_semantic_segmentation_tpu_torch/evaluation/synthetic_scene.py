@@ -277,6 +277,9 @@ def _mapped_crops(
     return np.stack(imgs), np.stack(labs)
 
 
+DROPOUT_SEED = 1
+
+
 def train_segmenter(
     frames: Sequence[np.ndarray],
     labels: Sequence[np.ndarray],
@@ -392,34 +395,42 @@ def train_segmenter(
                 ok = False
         return ok, stats
 
-    acc, recalls, precisions = 0.0, {}, {}
-    val_ok, next_val = val_images is None, 0
-    for it in range(max_steps):
-        conf = step(state, batches[it % len(batches)])["confusion"].cpu().numpy()
-        acc = float(np.trace(conf) / max(conf.sum(), 1.0))
-        # a class absent from this batch keeps its last measured value
-        for c in mapped_classes:
-            if conf[c].sum() > 0:
-                recalls[c] = float(conf[c, c] / conf[c].sum())
-            if conf[:, c].sum() > 0:
-                precisions[c] = float(conf[c, c] / conf[:, c].sum())
-        if log and (it + 1) % 50 == 0:
-            log(f"  train step {it + 1}: acc={acc:.3f} recalls={recalls} "
-                f"precisions={precisions}")
-        train_gate = (
-            len(recalls) == len(mapped_classes)
-            and len(precisions) == len(mapped_classes)
-            and min(recalls.values()) >= target_recall
-            and min(precisions.values()) >= target_recall
-            and it >= min_steps - 1
-        )
-        if train_gate and not val_ok and it >= next_val:
-            val_ok, vstats = val_gate()
-            next_val = it + 25  # bound the eval cost while converging
-            if log:
-                log(f"  val step {it + 1}: ok={val_ok} (recall, precision)={vstats}")
-        if train_gate and val_ok:
-            break
+    # ASPP's dropout draws from the device's default generator: fork it and
+    # seed the fork (the JAX TrainState's own key, PRNGKey(1)), so that the
+    # weights do not depend on what drew from it before
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.default_generator.manual_seed(DROPOUT_SEED)
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                torch.cuda.manual_seed(DROPOUT_SEED)
+        acc, recalls, precisions = 0.0, {}, {}
+        val_ok, next_val = val_images is None, 0
+        for it in range(max_steps):
+            conf = step(state, batches[it % len(batches)])["confusion"].cpu().numpy()
+            acc = float(np.trace(conf) / max(conf.sum(), 1.0))
+            # a class absent from this batch keeps its last measured value
+            for c in mapped_classes:
+                if conf[c].sum() > 0:
+                    recalls[c] = float(conf[c, c] / conf[c].sum())
+                if conf[:, c].sum() > 0:
+                    precisions[c] = float(conf[c, c] / conf[:, c].sum())
+            if log and (it + 1) % 50 == 0:
+                log(f"  train step {it + 1}: acc={acc:.3f} recalls={recalls} "
+                    f"precisions={precisions}")
+            train_gate = (
+                len(recalls) == len(mapped_classes)
+                and len(precisions) == len(mapped_classes)
+                and min(recalls.values()) >= target_recall
+                and min(precisions.values()) >= target_recall
+                and it >= min_steps - 1
+            )
+            if train_gate and not val_ok and it >= next_val:
+                val_ok, vstats = val_gate()
+                next_val = it + 25  # bound the eval cost while converging
+                if log:
+                    log(f"  val step {it + 1}: ok={val_ok} (recall, precision)={vstats}")
+            if train_gate and val_ok:
+                break
     if val_images is not None and not val_ok and log:
         log(f"  WARNING: held-out gate never reached {val_target} within {max_steps} "
             "steps; saving anyway (score will reflect it)")

@@ -11,7 +11,7 @@ by either package) that loads onto the device, or :meth:`quantize`
 calibrates one on frames; every forward then runs the int8 backbone (Q1 on
 its 3x3 sites on the card) and the float ASPP (K4) and decoder.  Not ported
 yet: spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
-item 6) raises ``NotImplementedError``.
+item 5) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ class SemanticSegmentation:
         if int(cfg.MODEL.get("SPATIAL_SHARDS", 0)) > 1:
             raise NotImplementedError(
                 "MODEL.SPATIAL_SHARDS: spatially sharded serving is not ported "
-                "(ROADMAP queue 1 item 6, parallel/)")
+                "(ROADMAP queue 1 item 5, parallel/)")
         if compute_dtype is None:
             compute_dtype = cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")
         self.dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype

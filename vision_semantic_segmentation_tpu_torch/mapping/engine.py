@@ -259,10 +259,18 @@ class SemanticMappingEngine:
         return np.moveaxis(np.asarray(grid), 0, -1)
 
     def save_grid(self, path: str, grid) -> str:
-        """Checkpoint the evidence grid + its geometry to ``path`` (.npz)."""
+        """Checkpoint the evidence grid + its geometry to ``path`` (.npz).
+
+        A row-sharded grid (``parallel.grid_shard.ShardedGrid``) is gathered
+        once, straight to the host.
+        """
+        from ..parallel.grid_shard import ShardedGrid
+
         if not path.endswith(".npz"):
             path += ".npz"
         spec = self.grid_spec
+        if isinstance(grid, ShardedGrid):
+            grid = grid.gather("cpu")
         if isinstance(grid, torch.Tensor):
             grid = grid.detach().cpu().numpy()
         np.savez_compressed(
@@ -299,8 +307,8 @@ class SemanticMappingEngine:
                 )
             return torch.from_numpy(z["grid"]).to(self.device)
 
-    def _const(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=self.device)
+    def _const(self, a, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device or self.device)
 
     # -- frame step ------------------------------------------------------------
     def _build_pointwise(
@@ -311,6 +319,7 @@ class SemanticMappingEngine:
         image_full_hw=None,
         distorted_image: bool = False,
         return_pixels: bool = False,
+        device=None,
     ):
         """Closure computing per-point (cell, cls, vis, upd).
 
@@ -323,18 +332,20 @@ class SemanticMappingEngine:
         the projected points instead of resampling the image.
         ``return_pixels=True`` appends the (downscaled) gather rows and
         columns ``gy, gx``, for callers that fetch more per-point data
-        (the network's confidence).
+        (the network's confidence).  ``device`` holds the closure's
+        constants (default: the engine's); the parallel paths build one
+        closure per device of their mesh.
         """
         cam = self.cameras[camera_id]
-        P = self._const(cam.P)
-        P_norm = self._const(cam.P_norm)
-        K = self._const(cam.K)
+        P = self._const(cam.P, device)
+        P_norm = self._const(cam.P_norm, device)
+        K = self._const(cam.K, device)
         has_dist = distorted_image and cam.dist is not None
-        T_v2b = self._const(self.T_velodyne_to_baselink)
+        T_v2b = self._const(self.T_velodyne_to_baselink, device)
         label_colors = np.asarray(self.label_colors)
-        offset = self._const(PCD_ORIGIN_OFFSET[:2, None])
+        offset = self._const(PCD_ORIGIN_OFFSET[:2, None], device)
         spec = self.grid_spec
-        bmin = self._const([[spec.boundary[0][0]], [spec.boundary[1][0]]])
+        bmin = self._const([[spec.boundary[0][0]], [spec.boundary[1][0]]], device)
         inv_res = 1.0 / spec.resolution
         h, w = spec.height, spec.width
         lane = self.lane_channel
@@ -397,20 +408,21 @@ class SemanticMappingEngine:
 
         return pointwise
 
-    def _build_dense_update(self):
+    def _build_dense_update(self, device=None):
         """Closure ``update(grid, cell, cls, intensity, upd, gh, gw, weights=None)``.
 
         ``grid`` is a contiguous planar (C, gh, gw) slab, updated in place;
         ``cell`` indexes it as ``row * gw + col``.  ``weights`` (N,) scales
         each point's observation (confidence weighting).  The form follows
-        ``fold_method`` (see the module docstring).
+        ``fold_method`` (see the module docstring).  ``device`` holds the
+        'scatter' form's evidence rows (default: the engine's).
         """
         if self.fold_method not in ("matmul", "scatter"):
             raise ValueError(f"unknown fold_method {self.fold_method!r}")
         if self.sort_method not in ("bitonic", "radix"):
             raise ValueError(f"unknown sort_method {self.sort_method!r}")
         if self.fold_method == "scatter":
-            return self._build_scatter_update()
+            return self._build_scatter_update(device)
         evidence = self.evidence
         num_cls = evidence.shape[0]
         lane = self.lane_channel
@@ -459,11 +471,12 @@ class SemanticMappingEngine:
 
         return _dense_update
 
-    def _build_scatter_update(self):
+    def _build_scatter_update(self, device=None):
         """``fold_method='scatter'``: sort the cell-major (cell, class) keys,
         total each cell's evidence columns with segmented sums, add the totals
         at the unique hit cells (JAX ``_scatter_fold``)."""
-        ev_rows = torch.as_tensor(np.ascontiguousarray(self.evidence.T), device=self.device)
+        ev_rows = torch.as_tensor(np.ascontiguousarray(self.evidence.T),
+                                  device=device or self.device)
         num_cls = self.evidence.shape[0]
         lane = self.lane_channel
         use_intensity = self.use_intensity and lane >= 0
@@ -510,16 +523,17 @@ class SemanticMappingEngine:
 
         return _scatter_update
 
-    def _build_update(self):
+    def _build_update(self, device=None):
         """Closure ``update(grid, cell, cls, intensity, upd, weights=None)``
-        applying the frame update to the full (C, H, W) grid.
+        applying the frame update to the full (C, H, W) grid (on ``device``,
+        default the engine's).
 
         Windowed mode: the update runs on a pose-centred (C, win, win) slab,
         so its cost is independent of the grid size.  The slab is gathered
         and written back through index tensors centred on the mean updated
         cell, so nothing is read back to the host.
         """
-        _dense_update = self._build_dense_update()
+        _dense_update = self._build_dense_update(device)
         spec = self.grid_spec
         h, w = spec.height, spec.width
         win = int(self.update_window) if self.update_window else 0

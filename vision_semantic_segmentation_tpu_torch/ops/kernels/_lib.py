@@ -98,13 +98,23 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        """Call the C entry point on the current stream and count the launch.
+        """Call the C entry point and count the launch.
 
-        The C function returns the ``cudaError_t`` of its launch; a refused
-        launch raises here (``torch.cuda.synchronize`` would not report it).
+        The launch goes to the current stream of its tensors' device (the
+        device of the :func:`ptr` arguments, which must agree), with that
+        device current: a mesh over several cards launches each band's
+        kernel on its own card.  The C function returns the ``cudaError_t``
+        of its launch; a refused launch raises here (``torch.cuda.
+        synchronize`` would not report it).
         """
+        devices = {a.device for a in args if isinstance(a, DevicePtr)}
+        if len(devices) != 1:
+            raise ValueError(f"{self.name}: tensors on {sorted(map(str, devices))}, not one card")
+        (device,) = devices
         fn = self._load()
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device)
+            err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed: cudaError_t {err}")
         self.launches += 1
@@ -200,5 +210,13 @@ def refuse_grad(kernel: CudaKernel, *tensors: torch.Tensor) -> None:
         )
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+class DevicePtr(ctypes.c_void_p):
+    """A tensor's data pointer that remembers the tensor's device."""
+
+    device: torch.device
+
+
+def ptr(t: torch.Tensor) -> DevicePtr:
+    p = DevicePtr(t.data_ptr())
+    p.device = t.device
+    return p

@@ -4,14 +4,16 @@ Port of the single-device part of
 ``vision_semantic_segmentation_tpu/parallel/train_step.py``: one fused step
 of forward, loss, backward, update and metrics (``make_train_step``) and
 the evaluation step (``make_eval_step``).  The data-parallel, per-device
-BatchNorm and spatial steps are not ported (ROADMAP queue 1 item 6); on one
-card the per-device BatchNorm step equals this one.
+BatchNorm and spatial steps are not ported (ROADMAP queue 1 items 4 and
+5); on one card the per-device BatchNorm step equals this one.
 
 The state is mutable here: :class:`TrainState` holds the module (f32
 parameters, BatchNorm buffers), the optimizer and its ``LambdaLR`` schedule,
 the step count and the generator the augmentation draws from; a step
 updates it in place.  Dropout draws from the device's default generator,
-which ``utils.set_random_seed`` seeds and the checkpoint saves.
+which ``utils.set_random_seed`` seeds and the checkpoint saves (the golden
+trainer, ``evaluation/synthetic_scene.py::train_segmenter``, forks it and
+seeds its own copy).
 
 ``compute_dtype`` bfloat16 runs the forward under ``torch.autocast`` with
 f32 parameters, loss and gradients (the JAX package's flax dtype

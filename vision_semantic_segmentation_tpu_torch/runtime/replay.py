@@ -14,9 +14,15 @@ copies on a side stream (:class:`StagedWindow`); the main thread orders its
 stream after those copies before the window runs.  The grid stays on the
 device for the whole sequence; only the rendered map comes back.
 
-Not ported yet, and refused with ``NotImplementedError``: grid-sharded
-replay (``MAPPING.GRID_SHARDS`` > 1) and frame-parallel replay (ROADMAP
-queue 1 item 6).
+Parallel replay (``parallel/``): ``frame_parallel=True`` fuses a
+homogeneous sequence data-parallel over a mesh of the replay's devices
+(``run_frames_parallel``: one partial grid a shard, one psum);
+``MAPPING.GRID_SHARDS`` > 1 row-shards the grid over that many devices
+(``_run_frames_grid_sharded``), and with ``frame_parallel`` both compose
+over a ('data', 'grid') mesh.  The devices are every local device of the
+engine's type unless the caller names them (``devices=``; a device may
+repeat, as logical shards).  A sharded grid is gathered once, onto the
+engine's device, before K1 renders it.
 """
 from __future__ import annotations
 
@@ -32,12 +38,19 @@ from ..config.defaults import resolve_output_dir
 from ..device import DeviceLike
 from ..mapping.engine import SemanticMappingEngine, getattr_cfg, pad_points
 from ..ops.kernels.render import render_bev_map_fused, unpack_rgba_image
+from ..parallel.frame_parallel import make_frame_parallel_run, stack_frames
+from ..parallel.grid_shard import (
+    ShardedGrid,
+    init_sharded_grid,
+    make_sharded_frame_parallel_run,
+    make_sharded_step,
+    shard_grid,
+)
+from ..parallel.mesh import create_mesh, local_devices
 from ..utils import image_io
 from ..utils.file_io import makedirs
 from ..utils.logger import MyLogger
 from .io import FrameRecord, iter_sequence_files, load_frames, load_reference_dump
-
-_PARALLEL_REPLAY = "(ROADMAP queue 1 item 6, parallel/)"
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
@@ -83,17 +96,21 @@ class MappingReplay:
 
     def __init__(self, cfg, logger: Optional[MyLogger] = None,
                  engine: Optional[SemanticMappingEngine] = None, frame_parallel: bool = False,
-                 device: DeviceLike = "cuda"):
-        if frame_parallel:
-            raise NotImplementedError(
-                f"frame_parallel: data-parallel replay is not ported {_PARALLEL_REPLAY}")
-        if int(getattr_cfg(cfg, "MAPPING.GRID_SHARDS", 1)) > 1:
-            raise NotImplementedError(
-                f"MAPPING.GRID_SHARDS > 1: grid-sharded replay is not ported {_PARALLEL_REPLAY}")
+                 device: DeviceLike = "cuda", devices: Optional[Sequence[DeviceLike]] = None):
+        """``frame_parallel=True`` fuses homogeneous sequences data-parallel
+        over ``devices`` (see :meth:`run_frames_parallel`); heterogeneous
+        sequences fall back to the sequential window path.
+        ``MAPPING.GRID_SHARDS`` > 1 row-shards the grid over the first that
+        many of ``devices``.  ``devices`` defaults to every local device of
+        the engine's type."""
+        self.frame_parallel = bool(frame_parallel)
+        self.grid_shards = int(getattr_cfg(cfg, "MAPPING.GRID_SHARDS", 1))
         self.cfg = cfg
         # the engine first: without a card it raises before any run
         # directory is made
         self.engine = engine or SemanticMappingEngine(cfg, device=device)
+        self.devices = (list(devices) if devices is not None
+                        else local_devices(self.engine.device.type))
         output_dir = resolve_output_dir(cfg.OUTPUT_DIR, cfg.TASK_NAME)
         if logger is None:
             logger = MyLogger("mapping_replay", save_dir=output_dir, use_timestamp=False)
@@ -167,13 +184,17 @@ class MappingReplay:
         (``engine.load_grid``) instead of a fresh one; evidence is additive,
         so split replays compose exactly.  The grid is updated in place, so
         ``init_grid`` is copied first unless the caller owns it
-        (``_copy_init=False``).
+        (``_copy_init=False``).  With ``MAPPING.GRID_SHARDS`` > 1 the grid
+        is row-sharded and the result a :class:`ShardedGrid`.
         """
+        if self.grid_shards > 1:
+            return self._run_frames_grid_sharded(frames, init_grid=init_grid,
+                                                 _copy_init=_copy_init)
         engine = self.engine
         if init_grid is None:
             grid = engine.init_grid()
         else:
-            grid = torch.as_tensor(init_grid, device=engine.device)
+            grid = self._full_grid(init_grid)
             if _copy_init:
                 grid = grid.clone()
         bucket = engine.point_bucket
@@ -204,9 +225,97 @@ class MappingReplay:
                 grid = dispatch(grid, chunk, staged)
         return grid
 
-    def finalize(self, grid: torch.Tensor, name: str = "") -> np.ndarray:
-        """Smooth + render (K1) + save + evaluate (ref mapping_replay.py:194-211)."""
-        packed = render_bev_map_fused(grid, self.label_colors)
+    def _full_grid(self, grid) -> torch.Tensor:
+        """A grid as one tensor on the engine's device (a sharded grid is
+        gathered; a tensor already there is not copied)."""
+        if isinstance(grid, ShardedGrid):
+            return grid.gather(self.engine.device)
+        return torch.as_tensor(grid, device=self.engine.device)
+
+    def _run_frames_grid_sharded(self, frames: Sequence[FrameRecord], init_grid=None,
+                                 _copy_init: bool = True) -> ShardedGrid:
+        """Sequential replay with the grid row-sharded over ('grid',).
+
+        ``MAPPING.GRID_SHARDS`` devices each keep one row band
+        (``parallel/grid_shard.py``); frames step one at a time, each band
+        taking the points it owns: for grids larger than one device's
+        memory.  Matches the unsharded replay.
+        """
+        if self.grid_shards > len(self.devices):
+            raise ValueError(f"MAPPING.GRID_SHARDS={self.grid_shards} but only "
+                             f"{len(self.devices)} devices are visible")
+        mesh = create_mesh(axis_names=("grid",), devices=self.devices[:self.grid_shards])
+        engine = self.engine
+        if init_grid is None:
+            grid = init_sharded_grid(engine, mesh)
+        elif (isinstance(init_grid, ShardedGrid) and not _copy_init
+              and init_grid.devices == mesh.along("grid")):
+            grid = init_grid  # the caller's bands, laid out as a fresh grid's
+        else:
+            # resume: lay the checkpointed grid out as a fresh one is laid out
+            grid = shard_grid(init_grid.gather() if isinstance(init_grid, ShardedGrid)
+                              else init_grid, mesh)
+        steps = {}
+        for f in frames:
+            key = (f.camera, f.pcd_frame_id == "velodyne")
+            if key not in steps:
+                steps[key] = make_sharded_step(engine, mesh, camera=f.camera,
+                                               pcd_in_velodyne_frame=key[1])
+            pcd, valid = pad_points(np.asarray(f.pcd, dtype=np.float32), engine.point_bucket)
+            grid = steps[key](grid, pcd, valid, f.semantic_image, f.position, f.quaternion)
+        return grid
+
+    def run_frames_parallel(self, frames: Sequence[FrameRecord], mesh=None, axis: str = "data",
+                            init_grid=None):
+        """Fuse a homogeneous frame sequence data-parallel over a mesh.
+
+        Frames shard over the mesh's ``axis``; each shard folds its frames
+        into a partial grid and one psum adds them (exact up to f32
+        re-association, ``parallel/frame_parallel.py``).  The default mesh
+        is the replay's devices; with ``MAPPING.GRID_SHARDS`` > 1 (and no
+        ``mesh``) frames shard over ``axis`` and grid rows over 'grid' of a
+        2-D mesh of them, and the result is a :class:`ShardedGrid`.  All
+        frames must share one camera and cloud frame.  A resumed
+        ``init_grid`` is added once, outside the psum.
+        """
+        if not frames:
+            raise ValueError("no frames to replay")
+        cameras = {f.camera for f in frames}
+        cloud_frames = {f.pcd_frame_id for f in frames}
+        if len(cameras) != 1 or len(cloud_frames) != 1:
+            raise ValueError("frame-parallel replay needs a homogeneous sequence; got "
+                             f"cameras={cameras}, cloud frames={cloud_frames}")
+        engine = self.engine
+        velodyne = frames[0].pcd_frame_id == "velodyne"
+        if mesh is None and self.grid_shards > 1:
+            # sp x fp composed: frames over 'data', grid rows over 'grid'
+            n_dev = len(self.devices)
+            if n_dev % self.grid_shards:
+                raise ValueError(f"{n_dev} devices do not split into "
+                                 f"GRID_SHARDS={self.grid_shards}")
+            mesh2d = create_mesh(axis_sizes=(n_dev // self.grid_shards, self.grid_shards),
+                                 axis_names=(axis, "grid"), devices=self.devices)
+            run = make_sharded_frame_parallel_run(engine, mesh2d, data_axis=axis,
+                                                  camera=frames[0].camera,
+                                                  pcd_in_velodyne_frame=velodyne)
+            stacked = stack_frames(engine, frames, mesh2d, axis=axis)
+            out = run(init_sharded_grid(engine, mesh2d), *stacked)
+            # evidence is additive: resuming is adding the checkpointed grid
+            # once OUTSIDE the psum (inside it would count once a shard)
+            return out if init_grid is None else out.add_(init_grid)
+        if mesh is None:
+            mesh = create_mesh(axis_names=(axis,), devices=self.devices)
+        run = make_frame_parallel_run(engine, mesh, axis=axis, camera=frames[0].camera,
+                                      pcd_in_velodyne_frame=velodyne)
+        out = run(engine.init_grid(), *stack_frames(engine, frames, mesh, axis=axis))
+        if init_grid is not None:
+            out += self._full_grid(init_grid)
+        return out
+
+    def finalize(self, grid, name: str = "") -> np.ndarray:
+        """Smooth + render (K1) + save + evaluate (ref mapping_replay.py:194-211).
+        A :class:`ShardedGrid` is gathered once, onto the engine's device."""
+        packed = render_bev_map_fused(self._full_grid(grid), self.label_colors)
         color_map = unpack_rgba_image(packed).cpu().numpy()
 
         makedirs(self.output_dir, exist_ok=True)
@@ -230,7 +339,15 @@ class MappingReplay:
         name = osp.splitext(osp.basename(path))[0]
         self.logger.log(f"Loading input file {path}")
         frames = load_frames(path) if path.endswith(".npz") else load_reference_dump(path)
-        grid = self.run_frames(frames, init_grid=init_grid, _copy_init=_copy_init)
+        # stack_frames stacks the images too, so frame-parallel needs one
+        # image shape as well as one (camera, cloud frame); anything else
+        # takes the sequential path (whose _chunk_frames splits on shape)
+        homogeneous = len({(f.camera, f.pcd_frame_id, np.asarray(f.semantic_image).shape)
+                           for f in frames}) == 1
+        if self.frame_parallel and homogeneous:
+            grid = self.run_frames_parallel(frames, init_grid=init_grid)
+        else:
+            grid = self.run_frames(frames, init_grid=init_grid, _copy_init=_copy_init)
         if return_grid:
             return grid
         return self.finalize(grid, name)

@@ -11,7 +11,7 @@ and returns).
 the JAX package's fused K-step dispatch equals bit for bit.
 ``TRAIN.COMPUTE_DTYPE`` bfloat16 runs the forward under ``torch.autocast``
 with f32 parameters.  Multi-device training (``TRAIN.SPATIAL_SHARDS`` > 1,
-``distributed``) is refused: ROADMAP queue 1 item 6.
+``distributed``) is refused: ROADMAP queue 1 items 4 and 5.
 
 ``tensorboard=True`` (with an ``output_dir``) writes the epoch's training
 meters and the validation loss and mIoU as TensorBoard scalars through
@@ -47,7 +47,8 @@ from .prefetch import stage_batch
 from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_PARALLEL = "multi-device training is not ported (ROADMAP queue 1 item 6, parallel/)"
+_DATA_PARALLEL = "data-parallel training is not ported (ROADMAP queue 1 item 4, parallel/)"
+_SPATIAL = "spatially sharded training is not ported (ROADMAP queue 1 item 5, parallel/)"
 
 
 class Trainer:
@@ -62,9 +63,9 @@ class Trainer:
             device: where the model trains; CUDA unless the caller asks for the CPU.
         """
         if distributed:
-            raise NotImplementedError(f"distributed: {_PARALLEL}")
+            raise NotImplementedError(f"distributed: {_DATA_PARALLEL}")
         if int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1)) > 1:
-            raise NotImplementedError(f"TRAIN.SPATIAL_SHARDS > 1: {_PARALLEL}")
+            raise NotImplementedError(f"TRAIN.SPATIAL_SHARDS > 1: {_SPATIAL}")
         self.cfg = cfg
         self.output_dir = output_dir
         self.logger = logger
