@@ -188,7 +188,7 @@ Phases (any failure raises, so the exit code is non-zero):
    overlay and the JSON written.
 
 11. Parallel replay (``parallel/``; outputs under the git-ignored
-   ``build/chip_smoke_parallel/``; last) over phase 5's 8 pre-segmented
+   ``build/chip_smoke_parallel/``; after phase 10) over phase 5's 8 pre-segmented
    1440x1920 frames (bucket 2**17, the 5x2000x2000 grid) against phase 5's
    sequential ``replay`` grid (within 1e-3, maps on at most 1e-3 of the
    cells).  Logical shards are one card repeated in the mesh; they run one
@@ -207,15 +207,43 @@ Phases (any failure raises, so the exit code is non-zero):
    (within 1e-4).  Frames/s of each, host clock, synchronised at both ends:
    the counted run, then (b)-(e) three more.
 
+12. Data-parallel training (``parallel/distributed.py``, the data-parallel
+   steps, ``train --distributed``; outputs under the git-ignored
+   ``build/chip_smoke_dp/``; last), on phase 7's rendered dataset.  The
+   phase starts two ranks on cuda:0 (``chip_smoke.py
+   --rank-worker spec.json``, each with a time limit; a failing rank fails
+   the phase) and opens their gloo group itself: NCCL refuses two ranks on
+   one card, and two ranks on one card measure the rank machinery, not
+   multi-card speed.  (a) One global-batch step of ``example_train.yaml``
+   at full width (ResNeXt50-32x4d OS16, 19 classes, f32, TF32 off, no
+   dropout, 16 centre crops of 513x513 as 2 x 8) against the one-process
+   step on the same 16: the loss, the confusion, the largest parameter
+   and running-statistic differences (tolerances, and why, at
+   ``DP_LOSS_RTOL``); the per-device step on identical halves against the
+   global-batch step; K4 8 and K3 24 a rank; the gradient all-reduce's ms.
+   (b) ``main(["train", "--distributed", ...])`` on the two ranks with
+   ``example_train.yaml`` as it stands (per-device BatchNorm, K = 8) for 4
+   epochs, resumed by AUTO_RESUME for one more, then with ``MODEL.SYNC_BN
+   True``: the loss falling, steps/s and images/s, each rank's peak memory
+   and wait for data, launches, checkpoints written by rank 0 alone.  (c)
+   ``torchrun --nproc-per-node 1 -m vision_semantic_segmentation_tpu_torch
+   train --distributed``, a one-rank NCCL world, against the same command in
+   this process: per-step losses within ``DP_TORCHRUN_RTOL``.
+
 A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import datetime
 import importlib.util
 import json
+import os
+import re
 import shutil
+import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -225,6 +253,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults, get_train_cfg_defaults
@@ -244,12 +273,26 @@ from vision_semantic_segmentation_tpu_torch.inference import (
 )
 from vision_semantic_segmentation_tpu_torch.evaluation import synthetic_scene as scene
 from vision_semantic_segmentation_tpu_torch.evaluation.map_eval import MapEvaluator
-from vision_semantic_segmentation_tpu_torch.models import build_train_model
+from vision_semantic_segmentation_tpu_torch.models import BatchNorm2d, build_train_model
 from vision_semantic_segmentation_tpu_torch.models.convert import load_weights
 from vision_semantic_segmentation_tpu_torch.ops.colormap import MAPILLARY_19_PALETTE
 from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
 from vision_semantic_segmentation_tpu_torch.ops.resize import resize_area
-from vision_semantic_segmentation_tpu_torch.parallel import local_devices
+from vision_semantic_segmentation_tpu_torch.device import resolve_device
+from vision_semantic_segmentation_tpu_torch.parallel import (
+    TrainState,
+    local_devices,
+    make_per_device_bn_train_step,
+    make_train_step,
+)
+from vision_semantic_segmentation_tpu_torch.parallel.distributed import all_reduce_
+from vision_semantic_segmentation_tpu_torch.train.build import build_dataloader
+from vision_semantic_segmentation_tpu_torch.train.checkpoint import Checkpoint
+from vision_semantic_segmentation_tpu_torch.train.optim import (
+    build_optimizer,
+    build_schedule,
+    build_scheduler,
+)
 from vision_semantic_segmentation_tpu_torch.train.transforms import Compose, Normalize, ToTensor
 from vision_semantic_segmentation_tpu_torch.utils import image_io
 from vision_semantic_segmentation_tpu_torch.runtime import (
@@ -2738,6 +2781,412 @@ def parallel_phase(smi: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
+# -- phase 12: data-parallel training -------------------------------------------------
+DP = REPO / "build" / "chip_smoke_dp"
+DP_RANKS = 2
+DP_TIMEOUT = 900    # seconds a group of ranks, or the torchrun command, may take
+DP_HALF = TRAIN_BATCH // DP_RANKS
+# 12(a), one step at full width in f32 from the same weights, two ranks against
+# one process (and per-device on identical halves against global-batch):
+# - the loss within 1e-4 relative: the global-batch BatchNorm's statistics
+#   (E[x^2] - E[x]^2, summed over two halves) against cuDNN's, 60 layers deep;
+# - every parameter within 5e-2 of the step's largest parameter update: one
+#   process's own f32 gradient of this random-weight network lies up to 1.3e-2
+#   from its f64 value (measured on the CPU at a global batch of 8), and the
+#   two sides differed by 1.2e-2 and 1.5e-2 of it on an H100 80GB HBM3 at
+#   700 W; a missing or doubled reduction moves a parameter by half its update;
+# - every running statistic within 1e-4 of its tensor's largest value (a tenth
+#   of the batch statistics' f32 rounding, accumulated over 60 layers);
+# - the confusion: at most 1e-4 of the pixels change cell.  A pixel whose two
+#   largest logits lie within the two sides' rounding changes class (99
+#   pixels in 62 cells, two ranks against one process, on an H100 80GB HBM3
+#   at 700 W; 144 pixels on identical halves), where a wrong statistic or a missing
+#   sum over ranks moves a share of the pixels of the order of 1.
+DP_LOSS_RTOL, DP_PARAM_TOL, DP_STAT_TOL, DP_MOVED_TOL = 1e-4, 5e-2, 1e-4, 1e-4
+# 12(c): per-step losses of the one-rank NCCL world against one process,
+# relative, as printed (4 decimals): cuDNN's backward is not deterministic
+# from run to run, the weights after a step differ by its rounding
+DP_TORCHRUN_RTOL = 1e-3
+
+
+def dp_cfg():
+    """example_train.yaml for 12(a): deterministic crops, no dropout (one
+    process and two ranks draw different masks)."""
+    cfg = get_train_cfg_defaults()
+    cfg.merge_from_file(str(REPO / "configs" / "example_train.yaml"))
+    cfg.merge_from_list(["DATASET.ROOT_DIR", str(TRAIN / "data"), "TRAIN.AUGMENTATION", VAL_AUG,
+                         "MODEL.ASPP.DROPOUT", "0.0", "DATALOADER.NUM_WORKERS", "8"])
+    return cfg
+
+
+def dp_state(cfg, init: dict) -> TrainState:
+    model, *_ = build_train_model(cfg, device="cuda:0")
+    model.load_state_dict(init, strict=True)
+    opt = build_optimizer(cfg, model.parameters())
+    return TrainState(model, opt, build_scheduler(opt, build_schedule(cfg)),
+                      torch.Generator("cuda:0").manual_seed(1))
+
+
+def dp_host_state(state: TrainState) -> dict:
+    return {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+
+def dp_diff(a: dict, b: dict, init: dict) -> dict:
+    """Largest parameter difference (and the largest update, b - init), and
+    the largest running-statistic difference as a share of its tensor's
+    largest value."""
+    params = [k for k in a if not k.endswith(("running_mean", "running_var",
+                                              "num_batches_tracked"))]
+    stats = [k for k in a if k.endswith(("running_mean", "running_var"))]
+    return {
+        "param": max(float((a[k] - b[k]).abs().max()) for k in params),
+        "update": max(float((b[k] - init[k]).abs().max()) for k in params),
+        "stat": max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
+                    for k in stats),
+    }
+
+
+def dp_check(what: str, d: dict, loss_a: float, loss_b: float) -> None:
+    ok = (abs(loss_a - loss_b) <= DP_LOSS_RTOL * abs(loss_b)
+          and d["param"] <= DP_PARAM_TOL * d["update"] and d["stat"] <= DP_STAT_TOL)
+    print(f"{what}: loss {loss_a!r} against {loss_b!r} (|diff| {abs(loss_a - loss_b):.3e}, "
+          f"tolerance {DP_LOSS_RTOL} relative); parameters max |diff| {d['param']:.3e} "
+          f"(tolerance {DP_PARAM_TOL} x the largest update {d['update']:.3e}); running "
+          f"statistics max |diff| {d['stat']:.3e} of their tensor's largest (tolerance "
+          f"{DP_STAT_TOL})", flush=True)
+    if not ok:
+        raise AssertionError(f"{what}: outside the tolerances")
+
+
+def dp_rank_steps(spec: dict, rank: int) -> dict:
+    """(a) on one rank: the global-batch step on this rank's half, counted and
+    timed; the gradient all-reduce timed; then the global-batch and the
+    per-device step on identical halves (rank 0's half on both ranks)."""
+    cfg = dp_cfg()
+    init = torch.load(DP / "init.pt")
+    batch = torch.load(DP / "batch.pt")
+    group = dist.group.WORLD
+
+    def half(i):
+        return {k: v[i * DP_HALF:(i + 1) * DP_HALF].to("cuda:0") for k, v in batch.items()}
+
+    state = dp_state(cfg, init)
+    step = make_train_step(19, group=group)
+    mine = half(rank)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = step(state, mine)
+    launches = launches_now()
+    step_s = time.perf_counter() - t0
+    grads = [p.grad.clone() for p in state.model.parameters() if p.grad is not None]
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_(grads, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    grad_mb = sum(g.numel() * g.element_size() for g in grads) / 2 ** 20
+    # one BatchNorm all-reduce alone ([sum x, sum x^2, n] of 256 channels),
+    # of which the global-batch step runs one a BatchNorm forward and backward
+    norms = sum(isinstance(mod, BatchNorm2d) for mod in state.model.modules())
+    stats = torch.zeros(2 * 256 + 1, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dist.all_reduce(stats, group=group)
+        torch.cuda.synchronize()
+    bn_ms = (time.perf_counter() - t0) / 50 * 1e3
+    out = {"loss": float(m["loss"]), "launches": launches, "step_s": step_s,
+           "reduce_ms": reduce_ms, "grad_mb": grad_mb, "grad_tensors": len(grads),
+           "norms": norms, "bn_ms": bn_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        torch.save({"loss": float(m["loss"]), "confusion": m["confusion"].cpu(),
+                    "state": dp_host_state(state)}, DP / "a_rank0.pt")
+    del state, step, grads, m
+    torch.cuda.empty_cache()
+    same = half(0)
+    runs = {}
+    for name, make in (("global", lambda: make_train_step(19, group=group)),
+                       ("per_device", lambda: make_per_device_bn_train_step(19, group))):
+        state = dp_state(cfg, init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = make()(state, same)
+        torch.cuda.synchronize()
+        runs[name] = (float(m["loss"]), dp_host_state(state), time.perf_counter() - t0,
+                      m["confusion"].cpu())
+        del state, m
+        torch.cuda.empty_cache()
+    (lg, sg, tg, cg), (lp, sp, tp, cp) = runs["global"], runs["per_device"]
+    out.update({"same": dp_diff(sp, sg, init), "same_loss": (lp, lg),
+                "same_moved": float((cg - cp).abs().sum()) / 2, "same_pixels": float(cg.sum()),
+                "same_step_s": {"global": tg, "per_device": tp}})
+    return out
+
+
+def dp_rank_train(spec: dict, rank: int) -> dict:
+    """(b) on one rank: ``main(["train", "--distributed", ...])`` per run, with
+    the launches, peak memory and checkpoint files of each."""
+    writes = []
+    write = Checkpoint._write
+    Checkpoint._write = staticmethod(lambda path, payload: (writes.append(path),
+                                                            write(path, payload)))
+    out = {}
+    for name, argv in spec["runs"]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli_main(argv)
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0, "history": trainer.history,
+                     "launches": launches_now(), "best": trainer.best_metric,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "checkpoints": [Path(p).name for p in writes],
+                     "route": trainer._train_step.__qualname__.split(".")[0]}
+        writes.clear()
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+DP_TASKS = {"a": dp_rank_steps, "b": dp_rank_train}
+
+
+def rank_worker(spec_path: str) -> None:
+    """One rank of phase 12: join the gloo group the phase opened on the
+    card and run the task; the result as JSON beside the spec."""
+    spec = json.loads(Path(spec_path).read_text())
+    torch.cuda.set_device(0)
+    resolve_device("cuda:0")  # TF32 off
+    rank = spec["rank"]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
+                            world_size=DP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        result = DP_TASKS[spec["task"]](spec, rank)
+    finally:
+        dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(result))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_group(task: str, **spec) -> list:
+    """Start the phase's ranks (two processes on cuda:0 over gloo), wait for
+    both within ``DP_TIMEOUT``; any rank failing fails the phase."""
+    port = free_port()
+    procs = []
+    for rank in range(DP_RANKS):
+        path = DP / f"{task}_rank{rank}.spec.json"
+        path.write_text(json.dumps({"task": task, "rank": rank, "port": port,
+                                    "out": str(DP / f"{task}_rank{rank}.json"), **spec}))
+        log = open(DP / f"{task}_rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
+                                        "--rank-worker", str(path)], stdout=log,
+                                       stderr=subprocess.STDOUT, start_new_session=True), log))
+    wait_all(f"12({task})", procs)
+    return [json.loads((DP / f"{task}_rank{r}.json").read_text()) for r in range(DP_RANKS)]
+
+
+def wait_all(what: str, procs: list) -> None:
+    """Wait for every process (and its session) until ``DP_TIMEOUT``; kill
+    what is left; raise with the log's end if any failed."""
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            log.close()
+    bad = [(i, p.returncode) for i, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {i: Path(log.name).read_text()[-4000:] for i, (_, log) in enumerate(procs)}
+        raise RuntimeError(f"{what}: processes {bad} failed or timed out after {DP_TIMEOUT} s:"
+                           f" {tails}")
+
+
+def dp_steps_phase(smi: str) -> None:
+    """(a) One global-batch step on two ranks against one process."""
+    cfg = dp_cfg()
+    loader = build_dataloader(cfg, mode="train")
+    host = next(iter(loader))
+    batch = {"image": torch.from_numpy(np.asarray(host["image"], np.float32)),
+             "label": torch.from_numpy(np.asarray(host["label"]).astype(np.int64))}
+    torch.save(batch, DP / "batch.pt")
+    model, *_ = build_train_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(init, DP / "init.pt")
+    del model
+    state = dp_state(cfg, init)
+    t0 = time.perf_counter()
+    ref = make_train_step(19)(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_loss, ref_cm, ref_state = float(ref["loss"]), ref["confusion"].cpu(), dp_host_state(state)
+    del state, ref
+    torch.cuda.empty_cache()
+    ranks = run_group("a")
+    got = torch.load(DP / "a_rank0.pt")
+    print(f"12(a) one global-batch step, ResNeXt50-32x4d OS16 f32 (TF32 off), batch 16 of "
+          f"513x513 as 2 ranks x {DP_HALF} on cuda:0 over gloo, against one process on {smi} "
+          "(two ranks on one card measure the rank machinery, not multi-card speed):",
+          flush=True)
+    moved = float((got["confusion"] - ref_cm).abs().sum()) / 2
+    print(f"  confusion: {moved:.0f} of {float(ref_cm.sum()):.0f} pixels change cell "
+          f"(tolerance {DP_MOVED_TOL} of them; cells differing "
+          f"{int((got['confusion'] != ref_cm).sum())}, largest |diff| "
+          f"{float((got['confusion'] - ref_cm).abs().max())})", flush=True)
+    dp_check("  2 ranks against one process", dp_diff(got["state"], ref_state, init),
+             got["loss"], ref_loss)
+    for r, res in enumerate(ranks):
+        launches = {k: v for k, v in res["launches"].items() if v}
+        print(f"  rank {r}: step {res['step_s'] * 1e3:.1f} ms host clock (one process, batch "
+              f"16: {ref_s * 1e3:.1f} ms, the first of its run); launches {launches} (one "
+              f"process at batch 16: K4 16, K3 48); gradient all-reduce of {res['grad_tensors']}"
+              f" tensors, {res['grad_mb']:.1f} MiB in one flat buffer: "
+              f"{', '.join(f'{v:.1f}' for v in res['reduce_ms'])} ms; one BatchNorm "
+              f"all-reduce (513 floats) {res['bn_ms']:.3f} ms alone, x {2 * res['norms']} "
+              f"a global-batch step ({res['norms']} BatchNorms, forward and backward) = "
+              f"{2 * res['norms'] * res['bn_ms']:.1f} ms; peak memory "
+              f"{res['peak_gib']:.2f} GiB; identical halves: global step "
+              f"{res['same_step_s']['global'] * 1e3:.1f} ms, per-device "
+              f"{res['same_step_s']['per_device'] * 1e3:.1f} ms", flush=True)
+        want = {"aspp_depthwise3x3_multi": DP_HALF, "depthwise3x3_dilated": 3 * DP_HALF}
+        if launches != want:
+            raise AssertionError(f"12(a) rank {r}: launches {launches} != {want}")
+        if abs(res["loss"] - got["loss"]) != 0:
+            raise AssertionError(f"12(a): the ranks report different losses")
+    same = ranks[0]
+    dp_check("  per-device step on identical halves against the global-batch step",
+             same["same"], *same["same_loss"])
+    print(f"  identical halves: {same['same_moved']:.0f} of {same['same_pixels']:.0f} pixels "
+          f"change cell in the confusion (tolerance {DP_MOVED_TOL} of them)", flush=True)
+    if max(moved / float(ref_cm.sum()), same["same_moved"] / same["same_pixels"]) > DP_MOVED_TOL:
+        raise AssertionError("12(a): confusion differs")
+
+
+def dp_train_argv(out: Path, epochs: int, *extra) -> list:
+    return ["train", "--cfg", str(REPO / "configs" / "example_train.yaml"),
+            "DATASET.ROOT_DIR", str(TRAIN / "data"), "OUTPUT_DIR", str(out),
+            "SCHEDULER.MAX_EPOCH", str(epochs), "DATALOADER.NUM_WORKERS", "4",
+            "TRAIN.AUGMENTATION", TRAIN_AUG, "VALIDATE.AUGMENTATION", VAL_AUG, *extra]
+
+
+def dp_train_phase(smi: str) -> None:
+    """(b) ``main(["train", "--distributed", ...])`` on two ranks of cuda:0:
+    example_train.yaml as it stands (per-device BatchNorm, K = 8), resumed
+    by AUTO_RESUME, then with SYNC_BN True."""
+    device = ["--device", "cuda", "--distributed"]
+    runs = [("per-device", dp_train_argv(DP / "per_device", 4, *device)),
+            ("per-device resumed (AUTO_RESUME)", dp_train_argv(DP / "per_device", 5, *device)),
+            ("SYNC_BN True", dp_train_argv(DP / "sync", 4, "MODEL.SYNC_BN", "True", *device))]
+    ranks = run_group("b", runs=runs)
+    val_frames = sum(1 for _ in (TRAIN / "data" / "validation" / "images").iterdir())
+    for name, _ in runs:
+        (r0, r1) = (r[name] for r in ranks)
+        hist = r0["history"]
+        steps = len(hist)
+        epochs = steps // 2
+        losses = [h["loss"] for h in hist]
+        if losses != [h["loss"] for h in r1["history"]] or not np.isfinite(losses).all():
+            raise AssertionError(f"12(b) {name}: the ranks' losses differ or are not finite")
+        batch_t = np.median([h["batch_time"] for h in hist])
+        print(f"12(b) train --distributed, {name}, 2 ranks on cuda:0 over gloo ({r0['route']}): "
+              f"{steps} steps (steps {hist[0]['step']}-{hist[-1]['step']}), {r0['seconds']:.1f} s "
+              f"command time on {smi}; median step {batch_t * 1e3:.1f} ms = {1 / batch_t:.3f} "
+              f"steps/s = {TRAIN_BATCH / batch_t:.2f} images/s (host clock between steps, rank 0)",
+              flush=True)
+        print(f"  loss per step: {[round(v, 4) for v in losses]}; best val mIoU {r0['best']:.4f}",
+              flush=True)
+        for r, res in enumerate((r0, r1)):
+            data_t = np.median([h["data_time"] for h in res["history"]])
+            launches = {k: v for k, v in res["launches"].items() if v}
+            want = {"aspp_depthwise3x3_multi": DP_HALF * steps + val_frames // 2 * epochs,
+                    "depthwise3x3_dilated": 3 * DP_HALF * steps}
+            print(f"  rank {r}: median host wait for data {data_t * 1e3:.1f} ms a step; peak "
+                  f"memory allocated {res['peak_gib']:.2f} GiB; launches {launches} (K4 "
+                  f"{DP_HALF} x {steps} steps + {val_frames // 2} x {epochs} validation frames, "
+                  f"K3 {3 * DP_HALF} x {steps}); checkpoints written {res['checkpoints']}",
+                  flush=True)
+            if launches != want:
+                raise AssertionError(f"12(b) {name} rank {r}: launches {launches} != {want}")
+        if not r0["checkpoints"] or r1["checkpoints"]:
+            raise AssertionError(f"12(b) {name}: checkpoints written by rank 1 or by no rank")
+    first = len(ranks[0][runs[0][0]]["history"])
+    for r, res in enumerate(ranks):
+        steps = [h["step"] for h in res[runs[1][0]]["history"]]
+        if steps != [first + 1, first + 2]:
+            raise AssertionError(f"12(b) rank {r}: the resume took steps {steps} after {first}")
+    for name in ("per-device", "SYNC_BN True"):
+        losses = [h["loss"] for h in ranks[0][name]["history"]]
+        if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            raise AssertionError(f"12(b) {name}: the loss did not fall: {losses}")
+
+
+def dp_torchrun_phase(smi: str) -> None:
+    """(c) ``torchrun --nproc-per-node 1 -m vision_semantic_segmentation_tpu_torch
+    train --distributed``, a one-rank NCCL world, against the same command in
+    this process; per-step losses as the log prints them (each epoch's running
+    mean, LOG_PERIOD 1)."""
+    extra = ("TRAIN.LOG_PERIOD", "1", "DATALOADER.NUM_WORKERS", "0", "RNG_SEED", "1")
+    argv = dp_train_argv(DP / "torchrun", 1, *extra)[1:]
+    log = open(DP / "torchrun.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", "1", "-m",
+                             "vision_semantic_segmentation_tpu_torch", "train", "--distributed",
+                             *argv], stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+                            start_new_session=True)
+    wait_all("12(c) torchrun", [(proc, log)])
+    seconds = time.perf_counter() - t0
+    text = (DP / "torchrun.log").read_text()
+    printed = [float(v) for v in re.findall(r"iter\[\d+\] lr [\d.]+ loss: [\d.]+ \(([\d.]+)\)",
+                                             text)]
+    if "over nccl" not in text:
+        raise AssertionError("12(c): the torchrun world did not run over NCCL")
+    one = cli_main(["train", *dp_train_argv(DP / "one_process", 1, *extra)[1:],
+                    "--device", "cuda"])
+    want = []
+    for h in one.history:
+        run = [g["loss"] for g in one.history if g["epoch"] == h["epoch"]
+               and g["step"] <= h["step"]]
+        want.append(float(np.mean(run)))
+    print(f"12(c) torchrun --nproc-per-node 1 ... train --distributed (NCCL, one rank) on {smi}: "
+          f"{seconds:.1f} s command time; running mean loss per step {printed} against one "
+          f"process's {[round(v, 4) for v in want]} (tolerance {DP_TORCHRUN_RTOL} relative)",
+          flush=True)
+    if len(printed) != len(want) or not np.allclose(printed, want, rtol=DP_TORCHRUN_RTOL,
+                                                    atol=5e-5):
+        raise AssertionError("12(c): the one-rank NCCL world's losses differ from one process")
+    del one
+    torch.cuda.empty_cache()
+
+
+def data_parallel_phase(smi: str) -> None:
+    """Phase 12: data-parallel training (``parallel/distributed.py``, the
+    data-parallel steps, ``train --distributed``) at full width."""
+    shutil.rmtree(DP, ignore_errors=True)
+    DP.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dp_steps_phase(smi)
+    dp_train_phase(smi)
+    dp_torchrun_phase(smi)
+    print(f"phase 12 (data-parallel training) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def sweep(smi: str) -> None:
     """Launch choices at the main path's shapes, each checked against the
     default's output and timed with CUDA events on one set of inputs: K4's
@@ -2896,6 +3345,8 @@ def main() -> None:
     clock(start, "phase 10 (serving tools)")
     parallel_phase(smi)
     clock(start, "phase 11 (parallel replay)")
+    data_parallel_phase(smi)
+    clock(start, "phase 12 (data-parallel training)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))
@@ -2906,4 +3357,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--rank-worker" in sys.argv:
+        rank_worker(sys.argv[sys.argv.index("--rank-worker") + 1])
+    else:
+        main()

@@ -45,7 +45,10 @@ from vision_semantic_segmentation_tpu_torch.models.metrics import (
     confusion_matrix_update,
     miou_from_confusion,
 )
-from vision_semantic_segmentation_tpu_torch.parallel import TrainState
+from vision_semantic_segmentation_tpu_torch.parallel import (
+    TrainState,
+    make_per_device_bn_train_step,
+)
 from vision_semantic_segmentation_tpu_torch.train import transforms as T
 from vision_semantic_segmentation_tpu_torch.train.checkpoint import Checkpoint
 from vision_semantic_segmentation_tpu_torch.train.datasets import DataLoader, Dataset
@@ -520,6 +523,34 @@ def test_train_command_on_cpu(tmp_path):
 
 
 def test_trainer_refuses_multi_device(tmp_path):
+    """Spatially sharded training is item 5, with or without ranks."""
     cfg = _dummy_cfg(tmp_path, ["TRAIN.SPATIAL_SHARDS", "2"])
     with pytest.raises(NotImplementedError, match="item 5"):
         Trainer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Trainer(cfg, device="cpu", distributed=True)
+
+
+def test_distributed_needs_torchrun_environment(tmp_path, monkeypatch):
+    """``distributed`` without a group or torchrun's environment raises and
+    never falls back to one process (the Trainer and ``train --distributed``)."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
+        Trainer(_dummy_cfg(tmp_path), device="cpu", distributed=True)
+    cfg_path = tmp_path / "train.yaml"
+    cfg_path.write_text("TASK_NAME: tiny\n")
+    with pytest.raises(RuntimeError, match="WORLD_SIZE"):
+        cli_main(["train", "--cfg", str(cfg_path), "OUTPUT_DIR", str(tmp_path), "--device",
+                  "cpu", "--distributed"])
+    assert not torch.distributed.is_initialized()
+    assert os.listdir(tmp_path) == ["train.yaml"]  # no log, no checkpoint
+
+
+def test_per_device_step_refuses_remat_and_accumulation():
+    """The JAX trainer's refusals on the per-device BatchNorm path, word for
+    word where they apply."""
+    with pytest.raises(NotImplementedError, match="remat requires the SyncBN train step"):
+        make_per_device_bn_train_step(5, None, remat=True)
+    with pytest.raises(NotImplementedError, match="GRAD_ACCUM_STEPS > 1 requires the SyncBN"):
+        make_per_device_bn_train_step(5, None, accum_steps=2)

@@ -13,6 +13,8 @@ flags:
     python -m vision_semantic_segmentation_tpu_torch export   input.{hkl,pkl,bag} [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch eval     --maps dir --gt dir
     python -m vision_semantic_segmentation_tpu_torch train    --cfg train.yaml [KEY VALUE ...]
+    torchrun --nproc-per-node N -m vision_semantic_segmentation_tpu_torch train --distributed
+                                                              --cfg train.yaml [KEY VALUE ...]
     python -m vision_semantic_segmentation_tpu_torch convert  weights.pth|train_dir [--out f.npz]
     python -m vision_semantic_segmentation_tpu_torch profile  --cfg exp.yaml [--window T] [--json f]
     python -m vision_semantic_segmentation_tpu_torch video    --cfg demo.yaml --video in.mp4
@@ -37,7 +39,9 @@ per segmented frame (a planar ``MAPPING.DEPTH_METHOD`` runs no K2).  The
 two-node dataflow runs the network in ``MODEL.COMPUTE_DTYPE`` (bf16 by
 default); every fused path (``--fused``, with or without ``--rate``) runs
 it in the fused pipeline's bf16, as the JAX package does.  ``train`` trains
-on one device (``train/trainer.py``); ASPP's depthwise convs run K4 forward
+on one device (``train/trainer.py``), or with ``--distributed`` as one rank
+of ``torchrun``'s process group, one rank a card, data-parallel over the
+global batch ``TRAIN.BATCH_SIZE``; ASPP's depthwise convs run K4 forward
 and K3 dgrad there.  ``profile`` times the fused pipeline's stages
 (``runtime/profiling.py``: K4 in its forward stage, K4 and K2 in its e2e
 stage), ``video`` segments a video file (K4 a frame), ``convert``
@@ -52,9 +56,8 @@ custom ops in it); ``autotune`` times the grid update's
 ``FOLD_METHOD``/``SORT_METHOD``/``UPDATE_WINDOW`` candidates and writes
 the winner as a YAML overlay (``runtime/tuning.py``); ``autotune
 --serving`` sweeps operating points for frames/s and golden-scene mIoU
-(``runtime/serving_pareto.py``).  Not ported yet: data-parallel training
-(ROADMAP queue 1 item 4) and ``MODEL.SPATIAL_SHARDS`` / ``TRAIN.
-SPATIAL_SHARDS`` (item 5).
+(``runtime/serving_pareto.py``).  Not ported yet: ``MODEL.SPATIAL_SHARDS``
+/ ``TRAIN.SPATIAL_SHARDS`` (ROADMAP queue 1 item 5).
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -230,6 +233,7 @@ def _fused_pipeline(cfg, bag_path: str, confidence: bool = False, device="cuda")
 def cmd_train(args):
     """Train the segmentation network (JAX ``cmd_train``, ref train.py:163)."""
     from .config import get_train_cfg_defaults, resolve_output_dir
+    from .parallel.distributed import ensure_distributed
     from .train.trainer import train
     from .utils.logger import setup_logger
 
@@ -240,8 +244,11 @@ def cmd_train(args):
         cfg.merge_from_list(args.opts)
     cfg.freeze()
     output_dir = resolve_output_dir(cfg.OUTPUT_DIR, cfg.TASK_NAME)
-    logger = setup_logger("train", output_dir)
-    return train(cfg, output_dir=output_dir, logger=logger, device=args.device)
+    # rank 0 alone logs
+    main_rank = not args.distributed or ensure_distributed(args.device).rank == 0
+    logger = setup_logger("train", output_dir) if main_rank else None
+    return train(cfg, output_dir=output_dir, logger=logger, device=args.device,
+                 distributed=args.distributed)
 
 
 def cmd_eval(args):
@@ -526,7 +533,11 @@ def main(argv=None):
     p = sub.add_parser("train", help="train the segmentation network")
     p.add_argument("--cfg", default="", metavar="FILE")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the network trains (default cuda; raises without a card)")
+                   help="where the network trains: cuda (with --distributed the rank's "
+                        "cuda:LOCAL_RANK) or cpu (default cuda; raises without a card)")
+    p.add_argument("--distributed", action="store_true",
+                   help="train data-parallel as one rank of torchrun's process group "
+                        "(nccl on cards, gloo on the CPU); raises without one")
     p.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     p.set_defaults(fn=cmd_train)
 

@@ -23,6 +23,7 @@ from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -67,15 +68,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     recomputes a forward) normalises with the batch statistics and leaves
     the running statistics alone, so a rematerialised step updates them
     once.
+
+    ``group`` (set by :func:`global_batch_statistics` for a data-parallel
+    step) takes the statistics over the global batch of every rank of that
+    ``torch.distributed`` group: the JAX package's BatchNorm under a
+    data-parallel ``jit``, with flax's fast variance ``E[x^2] - E[x]^2``
+    clipped at 0 (:class:`_GlobalBatchNorm`).
     """
 
     recomputing = False
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        if x.numel() == x.shape[1]:
+        ranks = 1 if self.group is None else dist.get_world_size(self.group)
+        if x.numel() * ranks == x.shape[1]:
             return self._one_value(x)
+        if self.group is not None:
+            return self._global_batch(x)
         # the fused call updates copies: autograd keeps its inputs, and the
         # running buffers must not change under it
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -87,6 +98,18 @@ class BatchNorm2d(nn.BatchNorm2d):
             n = x.numel() // x.shape[1]
             self.running_mean.copy_(mean)
             self.running_var.copy_(var - (var - (1.0 - f) * self.running_var) / n)
+        return y
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalise with the global batch's statistics; the running
+        statistics take the global mean and biased variance (not while
+        recomputing)."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.group)
+        if not self.recomputing:
+            f = self._factor()
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - f).add_(f * mean.to(self.running_mean.dtype))
+                self.running_var.mul_(1.0 - f).add_(f * var.to(self.running_var.dtype))
         return y
 
     def _factor(self) -> float:
@@ -110,6 +133,74 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1.0 - f).add_(f * x.reshape(-1).to(self.running_mean.dtype))
                 self.running_var.mul_(1.0 - f)
         return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm over the global batch of a ``torch.distributed`` group.
+
+    Forward: one all-reduce of ``[sum x, sum x^2, count]`` a channel (in at
+    least f32), mean ``E[x]``, variance ``max(E[x^2] - E[x]^2, 0)``.
+    Backward: one all-reduce of ``[sum dy, sum dy * xhat]``; the weight and
+    bias gradients stay local (the step's gradient all-reduce sums them).
+    Returns the output and the (non-differentiable) global mean and
+    variance.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = torch.full((1,), x.numel() // c, dtype=xs.dtype, device=x.device)
+        stats = torch.cat([xs.sum(dims), (xs * xs).sum(dims), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        raw = stats[c:2 * c] / n - mean * mean
+        var = raw.clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xs - mean.view(shape)) * invstd.view(shape)
+        y = xhat * weight.view(shape).to(xs.dtype) + bias.view(shape).to(xs.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, (raw > 0).to(xs.dtype), n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, moving, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+        dy = dy.to(mean.dtype)
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy = sums[:c] / n
+        # a variance clipped at 0 passes no gradient (flax's jnp.maximum)
+        mean_dy_xhat = sums[c:] / n * moving
+        dx = (dy - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)) * (
+            invstd * weight.to(mean.dtype)).view(shape)
+        return (dx.to(x.dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None, None)
+
+
+@contextlib.contextmanager
+def global_batch_statistics(module: nn.Module, group):
+    """Within the block, the BatchNorms of ``module`` take their training
+    statistics over the global batch of ``group`` (see
+    :class:`BatchNorm2d`); the backward pass, and a rematerialised forward
+    in it, must run inside the block too."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def checkpointed(module: nn.Module, fn: Callable, *args):

@@ -12,7 +12,7 @@ package (``0 / max(sum w, 1e-12)``), where ``F.cross_entropy`` with
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,21 @@ def cross_entropy_loss(
         weight: optional (C,) per-class weights (torch semantics: the mean
             is divided by the summed weights of counted elements).
     """
+    total, count = cross_entropy_sum_count(logits, labels, ignore_index, weight)
+    return total / count.clamp_min(1e-12)
+
+
+def cross_entropy_sum_count(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: int = 255,
+    weight: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss's two halves: the weighted sum of the counted pixels' cross
+    entropy and the sum of their weights.  A data-parallel step divides the
+    local sum by the count summed over ranks: the mean over the global
+    batch's counted pixels, which the mean of per-rank means is not once
+    ranks hold different numbers of ignored pixels."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     log_probs = F.log_softmax(logits.float(), dim=1)
@@ -41,7 +56,7 @@ def cross_entropy_loss(
     else:
         w = torch.ones_like(nll)
     w = torch.where(valid, w, torch.zeros_like(w))
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    return (nll * w).sum(), w.sum()
 
 
 class CrossEntropyLoss:

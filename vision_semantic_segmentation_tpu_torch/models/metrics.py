@@ -69,7 +69,7 @@ class MeanIOU:
         self.confusion_matrix += np.asarray(torch.as_tensor(cm).cpu(), dtype=np.float64)
 
     def synchronize_between_processes(self) -> None:
-        """No-op: one device (data-parallel training is ROADMAP queue 1 item 4)."""
+        """No-op: the data-parallel steps already sum the confusion over ranks."""
         return
 
     @property

@@ -1,6 +1,6 @@
-"""The device mesh, frame-parallel replay, the row-sharded grid and the
-training steps of the port.  The data-parallel training steps (ROADMAP
-queue 1 item 4) and spatial sharding (item 5) are not ported yet."""
+"""The device mesh, frame-parallel replay, the row-sharded grid, the process
+group of data-parallel training and the training steps of the port.
+Spatial sharding (ROADMAP queue 1 item 5) is not ported yet."""
 from .mesh import (
     Mesh,
     NamedSharding,
@@ -16,7 +16,14 @@ from .mesh import (
     shard_spatial_batch,
     shard_stacked_batches,
 )
-from .train_step import TrainState, make_eval_step, make_train_step
+from .distributed import World, ensure_distributed
+from .train_step import (
+    TrainState,
+    make_eval_step,
+    make_multi_train_step,
+    make_per_device_bn_train_step,
+    make_train_step,
+)
 from .grid_shard import (
     ShardedGrid,
     gather_grid,
@@ -42,8 +49,12 @@ __all__ = [
     "shard_batch",
     "shard_spatial_batch",
     "shard_stacked_batches",
+    "World",
+    "ensure_distributed",
     "TrainState",
     "make_eval_step",
+    "make_multi_train_step",
+    "make_per_device_bn_train_step",
     "make_train_step",
     "ShardedGrid",
     "gather_grid",

@@ -15,7 +15,9 @@ logical shards on one card, the counterpart of the JAX tests' virtual
 and pieces that land on one device are one tensor.
 
 No ``torch.distributed`` here: a mesh over several cards is driven from one
-process, and multi-process runs come with data-parallel training.
+process.  Data-parallel training runs one process per card instead
+(``parallel/distributed.py``), since its BatchNorm statistics cross the
+cards in the middle of every forward and backward.
 """
 from __future__ import annotations
 

@@ -1,11 +1,36 @@
-"""The single-device training step.
+"""The training steps: one device, and data-parallel over a process group.
 
-Port of the single-device part of
-``vision_semantic_segmentation_tpu/parallel/train_step.py``: one fused step
-of forward, loss, backward, update and metrics (``make_train_step``) and
-the evaluation step (``make_eval_step``).  The data-parallel, per-device
-BatchNorm and spatial steps are not ported (ROADMAP queue 1 items 4 and
-5); on one card the per-device BatchNorm step equals this one.
+Port of ``vision_semantic_segmentation_tpu/parallel/train_step.py``: one
+fused step of forward, loss, backward, update and metrics
+(``make_train_step``), the evaluation step (``make_eval_step``), K steps
+over a stacked batch (``make_multi_train_step``) and the data-parallel
+step with per-device BatchNorm statistics
+(``make_per_device_bn_train_step``).  Spatial sharding
+(``jit_spatial_*``) is not ported (ROADMAP queue 1 item 5).
+
+Data parallelism is one rank per card over ``torch.distributed``
+(``parallel/distributed.py``), each rank stepping on its slice of the global
+batch.  The JAX package's ``jit_*`` wrappers have no counterpart, as there
+is nothing to jit; each maps to a ``group=`` form here:
+
+  * ``jit_train_step(make_train_step(...), mesh)`` ->
+    ``make_train_step(..., group=g)``: BatchNorm over the global batch, the
+    loss the global batch's mean over counted pixels, the gradients and
+    confusion summed over ranks;
+  * ``jit_multi_train_step(make_multi_train_step(...), mesh)`` ->
+    ``make_multi_train_step(..., group=g)``;
+  * ``jit_eval_step(make_eval_step(...), mesh)`` -> ``make_eval_step(...,
+    group=g)``;
+  * ``make_per_device_bn_train_step(num_classes, mesh)`` ->
+    ``make_per_device_bn_train_step(num_classes, g)``.
+
+After a local backward, one all-reduce sums the gradients with the loss
+and the confusion (per-device steps: the running statistics too), and every
+rank applies the same update: no DDP wrapper (it would broadcast rank 0's
+buffers at every forward, rename the state dict's keys and need
+``no_sync`` for accumulation).  Each rank's dropout and augmentation draw
+from its own generators, which the trainer seeds from the run's seed and
+the rank (``distributed.rank_seed``).
 
 The state is mutable here: :class:`TrainState` holds the module (f32
 parameters, BatchNorm buffers), the optimizer and its ``LambdaLR`` schedule,
@@ -22,17 +47,28 @@ on the card (``ops/kernels/depthwise.py::DepthwiseBranches``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
-from ..models.layers import checkpointed
-from ..models.loss import cross_entropy_loss
+from ..models.layers import checkpointed, global_batch_statistics
+from ..models.loss import cross_entropy_loss, cross_entropy_sum_count
 from ..models.metrics import confusion_matrix_update
+from .distributed import all_reduce_
 
 Batch = Dict[str, torch.Tensor]
+Step = Callable[["TrainState", Batch], Dict[str, torch.Tensor]]
+
+_PER_DEVICE_REMAT = (
+    "remat requires the SyncBN train step (MODEL.SYNC_BN=True, a single device, or "
+    "TRAIN.FREEZE_BATCHNORM=True); the per-device-BN path does not support it")
+_PER_DEVICE_ACCUM = (
+    "TRAIN.GRAD_ACCUM_STEPS > 1 requires the SyncBN train step (MODEL.SYNC_BN=True or a "
+    "single device); the per-device-BN path does not support it")
 
 
 @dataclasses.dataclass
@@ -51,6 +87,12 @@ def _bn_buffers(model: nn.Module) -> List[torch.Tensor]:
             for b in m.buffers()]
 
 
+def _running_stats(model: nn.Module) -> List[torch.Tensor]:
+    """The BatchNorms' running means and variances (not their batch counts)."""
+    return [t for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for t in (m.running_mean, m.running_var) if t is not None]
+
+
 def _forward(model: nn.Module, image: torch.Tensor, remat: bool, dtype: torch.dtype):
     with torch.autocast(image.device.type, dtype=dtype, enabled=dtype != torch.float32):
         if remat:
@@ -65,6 +107,32 @@ def _nchw(image: torch.Tensor) -> torch.Tensor:
     return (image if image.is_floating_point() else image.float()).permute(0, 3, 1, 2)
 
 
+def _world(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _global_mean_loss(logits, label, ignore_index: int, group) -> torch.Tensor:
+    """The local sum over the count summed over ``group``'s ranks."""
+    total, count = cross_entropy_sum_count(logits, label, ignore_index=ignore_index)
+    dist.all_reduce(count, group=group)
+    return total / count.clamp_min(1e-12)
+
+
+def _clip_(grads: List[torch.Tensor], max_grad_norm: float) -> None:
+    """Scale by ``min(1, max / max(global_norm, 1e-12))`` (optax's global norm
+    over every parameter with a gradient)."""
+    if max_grad_norm > 0 and grads:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        torch._foreach_mul_(grads, scale)
+
+
+def _update(state: TrainState) -> None:
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+
+
 def make_train_step(
     num_classes: int,
     ignore_index: int = 255,
@@ -74,7 +142,8 @@ def make_train_step(
     accum_steps: int = 1,
     augment: Optional[Callable] = None,
     compute_dtype: torch.dtype = torch.float32,
-) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    group=None,
+) -> Step:
     """Build the train step ``step(state, batch) -> {"loss", "confusion"}``.
 
     ``batch``: ``image`` (B, H, W, 3) float32 NHWC (raw uint8 with
@@ -94,8 +163,15 @@ def make_train_step(
     global norm over every parameter with a gradient).  ``augment`` maps
     ``(generator, batch) -> batch`` before the step
     (``train/augment.py``).
-    """
 
+    ``group`` (a ``torch.distributed`` group; ``batch`` is this rank's slice
+    of the global batch): the data-parallel step of the JAX package's
+    ``jit_train_step``.  BatchNorm takes the global batch's statistics (on
+    more than one rank), each micro-batch's loss is its global mean over
+    counted pixels, and after the micro-batches one all-reduce sums the
+    gradients, the loss and the confusion; clipping sees the summed
+    gradient.
+    """
     def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
         if augment is not None:
@@ -108,26 +184,26 @@ def make_train_step(
         if b % accum_steps:
             raise ValueError(f"batch of {b} does not split into {accum_steps} micro-batches")
         micro = b // accum_steps
+        sync = _world(group) > 1
         loss_sum = confusion = None
         for i in range(accum_steps):
             img = _nchw(image[i * micro : (i + 1) * micro])
             lab = label[i * micro : (i + 1) * micro]
-            logits = _forward(model, img, remat, compute_dtype)
-            loss = cross_entropy_loss(logits, lab, ignore_index=ignore_index)
-            loss.backward()
+            with (global_batch_statistics(model, group) if sync else contextlib.nullcontext()):
+                logits = _forward(model, img, remat, compute_dtype)
+                loss = (cross_entropy_loss(logits, lab, ignore_index=ignore_index)
+                        if group is None else _global_mean_loss(logits, lab, ignore_index, group))
+                loss.backward()
             cm = confusion_matrix_update(logits.detach(), lab, num_classes)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             confusion = cm if confusion is None else confusion + cm
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if group is not None:
+            all_reduce_(grads + [loss_sum, confusion], group)
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
-        if max_grad_norm > 0 and grads:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-12), max=1.0)
-            torch._foreach_mul_(grads, scale)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
+        _clip_(grads, max_grad_norm)
+        _update(state)
         if saved is not None:
             with torch.no_grad():
                 for buf, old in zip(_bn_buffers(model), saved):
@@ -137,9 +213,91 @@ def make_train_step(
     return train_step
 
 
+def make_per_device_bn_train_step(
+    num_classes: int,
+    group,
+    ignore_index: int = 255,
+    max_grad_norm: float = 0.0,
+    steps: int = 1,
+    augment: Optional[Callable] = None,
+    compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+    accum_steps: int = 1,
+) -> Step:
+    """Data-parallel train step with per-device BatchNorm statistics (the
+    reference's DDP default, ``MODEL.SYNC_BN`` False).
+
+    Each rank normalises with its own slice's statistics and takes its
+    local mean loss; one all-reduce then sums the gradients, the loss, the
+    running statistics and the confusion, and the first three are divided
+    by the number of ranks: the gradient of the mean over ranks of the
+    local losses (JAX's ``pmean`` inside the differentiated loss), the
+    reported loss that mean, the stored running statistics the mean over
+    ranks (the JAX package's deterministic rule, not DDP's rank 0), the
+    confusion the sum.  ``max_grad_norm`` clips the mean gradient.
+
+    ``steps`` > 1 returns :func:`make_multi_train_step`'s form over a
+    stacked ``(steps, B, ...)`` batch.  ``remat`` and ``accum_steps`` > 1
+    raise, as the JAX trainer refuses them on this path.
+    """
+    if remat:
+        raise NotImplementedError(_PER_DEVICE_REMAT)
+    if accum_steps > 1:
+        raise NotImplementedError(_PER_DEVICE_ACCUM)
+    ranks = float(_world(group))
+
+    def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        if augment is not None:
+            batch = augment(state.generator, batch)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        label = batch["label"]
+        logits = _forward(model, _nchw(batch["image"]), False, compute_dtype)
+        loss = cross_entropy_loss(logits, label, ignore_index=ignore_index)
+        loss.backward()
+        confusion = confusion_matrix_update(logits.detach(), label, num_classes)
+        loss = loss.detach()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        means = grads + [loss] + _running_stats(model)
+        with torch.no_grad():
+            all_reduce_(means + [confusion], group)
+            torch._foreach_div_(means, ranks)
+        _clip_(grads, max_grad_norm)
+        _update(state)
+        return {"loss": loss, "confusion": confusion}
+
+    return _stacked(train_step, steps) if steps > 1 else train_step
+
+
+def _stacked(step: Step, steps: int) -> Step:
+    """``steps`` calls of ``step``, one a slice of a ``(steps, B, ...)`` batch."""
+
+    def multi_step(state: TrainState, batches: Batch) -> Dict[str, torch.Tensor]:
+        k = batches["image"].shape[0]
+        if k != steps:
+            raise ValueError(f"a stacked batch of {k} steps for a {steps}-step dispatch")
+        ms = [step(state, {key: v[i] for key, v in batches.items()}) for i in range(k)]
+        return {"loss": torch.stack([m["loss"] for m in ms]),
+                "confusion": torch.stack([m["confusion"] for m in ms])}
+
+    return multi_step
+
+
+def make_multi_train_step(num_classes: int, steps: int, **kwargs) -> Step:
+    """``steps`` train steps over a batch stacked ``(steps, B, ...)``, each
+    :func:`make_train_step`'s (``kwargs`` are its own, ``group`` among
+    them).  Returns the loss ``(steps,)`` and the per-step confusion
+    ``(steps, C, C)``, which the host sums in float64 (each step's counts
+    are exact in f32, a sum of K steps need not be)."""
+    return _stacked(make_train_step(num_classes, **kwargs), steps)
+
+
 def make_eval_step(num_classes: int, ignore_index: int = 255,
-                   compute_dtype: torch.dtype = torch.float32):
-    """Validation step: forward (running statistics) + loss + confusion, no updates."""
+                   compute_dtype: torch.dtype = torch.float32, group=None):
+    """Validation step: forward (running statistics) + loss + confusion, no
+    updates.  With ``group``, one all-reduce makes the loss the global
+    batch's mean over counted pixels and sums the confusion."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -151,9 +309,12 @@ def make_eval_step(num_classes: int, ignore_index: int = 255,
         finally:
             model.train(was_training)
         label = batch["label"]
-        return {
-            "loss": cross_entropy_loss(logits, label, ignore_index=ignore_index),
-            "confusion": confusion_matrix_update(logits, label, num_classes),
-        }
+        confusion = confusion_matrix_update(logits, label, num_classes)
+        if group is None:
+            return {"loss": cross_entropy_loss(logits, label, ignore_index=ignore_index),
+                    "confusion": confusion}
+        total, count = cross_entropy_sum_count(logits, label, ignore_index=ignore_index)
+        all_reduce_([total, count, confusion], group)
+        return {"loss": total / count.clamp_min(1e-12), "confusion": confusion}
 
     return eval_step

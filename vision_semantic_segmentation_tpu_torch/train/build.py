@@ -1,10 +1,11 @@
 """Dataloader + transform builders (ref data/build.py:10-104).
 
 Port of ``vision_semantic_segmentation_tpu/train/build.py``:
-``DATASET.NAME`` Mapillary, BDD or Pascal, on one device.
+``DATASET.NAME`` Mapillary, BDD or Pascal.
 """
 from __future__ import annotations
 
+from ..parallel.distributed import rank, world
 from . import transforms as T
 from .datasets import BDDSegmentation, DataLoader, MapillaryVistas, VOCSegmentation
 
@@ -24,8 +25,16 @@ def build_transform(augmentation):
     return T.Compose(transform_list)
 
 
-def build_dataloader(cfg, mode: str = "train") -> DataLoader:
-    """Mode-driven dataset + loader construction (ref data/build.py:43-104)."""
+def build_dataloader(cfg, mode: str = "train", distributed: bool = False) -> DataLoader:
+    """Mode-driven dataset + loader construction (ref data/build.py:43-104).
+
+    ``distributed=True`` (in a joined process group): the batch size is the
+    global batch, of which this rank decodes its contiguous slice (of each
+    of ``TRAIN.GRAD_ACCUM_STEPS`` micro-batches in training), a remainder
+    batch padded with ignored samples (``DataLoader``'s ``rank``/``world``/
+    ``micro``).  The JAX package instead gives each host a strided shard of
+    the dataset and a batch of its own.
+    """
     if mode == "train":
         batch_size = cfg.TRAIN.BATCH_SIZE
         augmentation = cfg.TRAIN.AUGMENTATION
@@ -57,4 +66,7 @@ def build_dataloader(cfg, mode: str = "train") -> DataLoader:
         shuffle=is_train,
         drop_last=is_train and cfg.DATALOADER.DROP_LAST,
         num_workers=cfg.DATALOADER.NUM_WORKERS,
+        rank=rank() if distributed else 0,
+        world=world() if distributed else 1,
+        micro=max(1, int(getattr(cfg.TRAIN, "GRAD_ACCUM_STEPS", 1))) if is_train else 1,
     )

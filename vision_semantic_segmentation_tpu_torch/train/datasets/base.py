@@ -7,6 +7,18 @@ epoch, batching with drop_last, a thread pool for decode/augment (the
 reference's ``num_workers``), and shards (each shard reads its slice — the
 DistributedSampler equivalent; batch_size is per shard).  The shuffle order
 is the JAX package's for the same seed and epoch.
+
+Data-parallel training splits each batch instead (``rank``, ``world``):
+every rank draws the same permutation and decodes only its contiguous
+slice of each global batch of ``batch_size``, which is the JAX mesh's split
+of a global batch (``shard_batch``).  With ``micro`` > 1 micro-batches
+(gradient accumulation) a rank's slice is its contiguous part of each
+micro-batch in turn, so that micro-batch i is the global batch's i-th
+contiguous chunk on every rank together, as in the JAX step's reshape.  A
+remainder batch is padded to a multiple of ``world`` with copies of its
+first sample whose labels are all ``PAD_LABEL`` (JAX
+``Trainer._pad_batch``): no loss and no confusion, only the training
+BatchNorm statistics see them.
 """
 from __future__ import annotations
 
@@ -16,6 +28,8 @@ import os.path as osp
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
+
+PAD_LABEL = 255
 
 
 class Dataset:
@@ -49,6 +63,9 @@ class DataLoader:
         seed: int = 0,
         num_shards: int = 1,
         shard_index: int = 0,
+        rank: int = 0,
+        world: int = 1,
+        micro: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -57,6 +74,9 @@ class DataLoader:
         self.num_workers = num_workers
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.rank = rank
+        self.world = world
+        self.micro = micro
         self.epoch = 0
         self._rng = np.random.default_rng(seed)
 
@@ -85,15 +105,37 @@ class DataLoader:
         ]
         if remainder and not self.drop_last:
             batches.append(indices[nb * self.batch_size :])
+        batches = [self._rank_slice(b) for b in batches]
 
         if self.num_workers > 0:
             with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
-                for batch_idx in batches:
+                for batch_idx, pads in batches:
                     samples = list(pool.map(self.dataset.__getitem__, batch_idx))
-                    yield _collate(samples)
+                    yield _collate(_padded(samples, pads))
         else:
-            for batch_idx in batches:
-                yield _collate([self.dataset[i] for i in batch_idx])
+            for batch_idx, pads in batches:
+                yield _collate(_padded([self.dataset[i] for i in batch_idx], pads))
+
+    def _rank_slice(self, batch_idx: np.ndarray):
+        """This rank's slice of a global batch, and how many of its last
+        entries are padding (copies of the batch's first sample)."""
+        if self.world == 1:
+            return batch_idx, 0
+        n = len(batch_idx)
+        total = -(-n // self.world) * self.world
+        position = np.arange(total)
+        chunks = self.micro if total % (self.micro * self.world) == 0 else 1
+        mine = position.reshape(chunks, self.world, -1)[:, self.rank].reshape(-1)
+        return np.where(mine < n, batch_idx[np.minimum(mine, n - 1)], batch_idx[0]), int(
+            (mine >= n).sum())
+
+
+def _padded(samples: List[Dict[str, np.ndarray]], pads: int) -> List[Dict[str, np.ndarray]]:
+    """The last ``pads`` samples with every label ignored."""
+    for k in range(len(samples) - pads, len(samples)):
+        samples[k] = {**samples[k], "label": np.full_like(np.asarray(samples[k]["label"]),
+                                                          PAD_LABEL)}
+    return samples
 
 
 def _collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

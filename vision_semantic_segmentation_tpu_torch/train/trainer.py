@@ -1,17 +1,35 @@
 """Training driver.
 
 Port of ``vision_semantic_segmentation_tpu/train/trainer.py`` (ref
-train.py:56-280) for one device: per-epoch training with periodic logging,
-validation, checkpointing and best-mIoU tracking, AUTO_RESUME /
-RESUME_STATES (mid-epoch, from the exact saved step), and preemption
-(``TRAIN.PREEMPTION_SAFE``: SIGTERM checkpoints at the next step boundary
-and returns).
+train.py:56-280 and distributed_train.py:201-369): per-epoch training with
+periodic logging, validation, checkpointing and best-mIoU tracking,
+AUTO_RESUME / RESUME_STATES (mid-epoch, from the exact saved step), and
+preemption (``TRAIN.PREEMPTION_SAFE``: SIGTERM checkpoints at the next step
+boundary and returns).
+
+``distributed=True`` trains data-parallel, one rank per card, in the
+process group of ``torchrun`` (``parallel/distributed.py``): the global
+batch is ``TRAIN.BATCH_SIZE``, each rank decoding its contiguous slice.
+The step follows the JAX trainer's routing: global-batch BatchNorm
+statistics (``make_train_step(group=...)``) with ``MODEL.SYNC_BN``, on one
+rank or with ``TRAIN.FREEZE_BATCHNORM``, else per-rank statistics
+(``make_per_device_bn_train_step``), which refuses remat and
+``TRAIN.GRAD_ACCUM_STEPS`` > 1.  A batch that does not split over the
+ranks is refused (the JAX trainer shrinks its mesh to a divisor; a
+launched rank cannot be left idle).  Rank 0's parameters and buffers reach
+every rank after the model is built and after a resume, and a resume
+raises unless every rank read the same step (each reads the checkpoint
+from its own ``OUTPUT_DIR``, which the ranks must share); rank 0 alone
+writes checkpoints, logs and TensorBoard scalars, and the other ranks wait
+at a barrier after each save.  Validation sums the confusion over ranks,
+so every rank keeps the same best mIoU, and a SIGTERM on any rank stops
+every rank at the same step boundary.
 
 ``TRAIN.STEPS_PER_DISPATCH`` K is accepted and runs K single steps, which
 the JAX package's fused K-step dispatch equals bit for bit.
 ``TRAIN.COMPUTE_DTYPE`` bfloat16 runs the forward under ``torch.autocast``
-with f32 parameters.  Multi-device training (``TRAIN.SPATIAL_SHARDS`` > 1,
-``distributed``) is refused: ROADMAP queue 1 items 4 and 5.
+with f32 parameters.  ``TRAIN.SPATIAL_SHARDS`` > 1 is refused: ROADMAP
+queue 1 item 5.
 
 ``tensorboard=True`` (with an ``output_dir``) writes the epoch's training
 meters and the validation loss and mIoU as TensorBoard scalars through
@@ -31,10 +49,17 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..models.build import build_train_model
-from ..parallel.train_step import TrainState, make_eval_step, make_train_step
+from ..parallel.distributed import broadcast_module_, ensure_distributed, rank_seed
+from ..parallel.train_step import (
+    TrainState,
+    make_eval_step,
+    make_per_device_bn_train_step,
+    make_train_step,
+)
 from ..runtime.replay import StagedWindow
 from ..utils.seed import set_random_seed
 from .augment import device_augment_from_cfg
@@ -47,12 +72,12 @@ from .prefetch import stage_batch
 from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_DATA_PARALLEL = "data-parallel training is not ported (ROADMAP queue 1 item 4, parallel/)"
 _SPATIAL = "spatially sharded training is not ported (ROADMAP queue 1 item 5, parallel/)"
 
 
 class Trainer:
-    """Config-driven trainer (ref train.py:163-243) on one device."""
+    """Config-driven trainer (ref train.py:163-243), on one device or one
+    rank of a data-parallel group."""
 
     def __init__(self, cfg, output_dir: str = "", logger=None, device: DeviceLike = "cuda",
                  tensorboard=False, remat: bool = False, distributed: bool = False):
@@ -61,24 +86,34 @@ class Trainer:
                 a writer (any object with ``add_scalar``).
             remat: recompute the whole forward in the backward (memory saver).
             device: where the model trains; CUDA unless the caller asks for the CPU.
+            distributed: join ``torchrun``'s process group (or the one this
+                process opened) and train as one of its ranks; raises
+                without one.  ``device`` ``cuda`` is then ``cuda:LOCAL_RANK``.
         """
-        if distributed:
-            raise NotImplementedError(f"distributed: {_DATA_PARALLEL}")
         if int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1)) > 1:
             raise NotImplementedError(f"TRAIN.SPATIAL_SHARDS > 1: {_SPATIAL}")
         self.cfg = cfg
         self.output_dir = output_dir
         self.logger = logger
-        self.device = resolve_device(device)
+        self.world = ensure_distributed(device) if distributed else None
+        self.device = self.world.device if distributed else resolve_device(device)
+        self.rank = self.world.rank if distributed else 0
+        ranks = self.world.size if distributed else 1
+        if cfg.TRAIN.BATCH_SIZE % ranks:
+            raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} does not split over "
+                             f"{ranks} ranks: launch a number of ranks that divides it")
 
         seed = set_random_seed(cfg.RNG_SEED)
         seed = 0 if seed is None else seed  # RNG_SEED < 0: unseeded (ref torch_util.py:7-16)
+        self._seed = seed
         compute = str(getattr(cfg.TRAIN, "COMPUTE_DTYPE", "float32"))
         if compute not in _DTYPES:
             raise ValueError(f"TRAIN.COMPUTE_DTYPE {compute!r} not in {sorted(_DTYPES)}")
         self.compute_dtype = _DTYPES[compute]
         self.model, self.loss_fn, self.train_metric, self.val_metric = build_train_model(
             cfg, device=self.device, generator=torch.Generator().manual_seed(seed))
+        if self.world is not None:
+            broadcast_module_(self.model, group=self.world.group)
 
         params = trainable_parameters(self.model, tuple(cfg.TRAIN.FROZEN_PATTERNS),
                                       bool(cfg.TRAIN.FREEZE_BATCHNORM))
@@ -87,23 +122,42 @@ class Trainer:
         self.state = TrainState(
             model=self.model, optimizer=optimizer,
             scheduler=build_scheduler(optimizer, self.schedule),
-            generator=torch.Generator(self.device).manual_seed(seed + 1),
+            generator=torch.Generator(self.device),
         )
+        self._seed_rank(0)
 
         num_classes = cfg.DATASET.NUM_CLASSES
         self._steps_per_dispatch = max(1, int(getattr(cfg.TRAIN, "STEPS_PER_DISPATCH", 1)))
         accum = max(1, int(getattr(cfg.TRAIN, "GRAD_ACCUM_STEPS", 1)))
-        if accum > 1 and cfg.TRAIN.BATCH_SIZE % accum:
+        if accum > 1 and cfg.TRAIN.BATCH_SIZE % (accum * ranks):
+            # each rank takes its part of each micro-batch
             raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} is not divisible "
-                             f"by TRAIN.GRAD_ACCUM_STEPS={accum}")
+                             f"by TRAIN.GRAD_ACCUM_STEPS={accum}"
+                             + (f" x {ranks} ranks" if ranks > 1 else ""))
         # TRAIN.DEVICE_AUGMENT: the random scale/crop/flip/normalize chain
         # runs on the card; the loader feeds raw uint8 batches
         self._device_augment = device_augment_from_cfg(cfg)
-        self._train_step = make_train_step(
-            num_classes, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
-            freeze_bn_stats=bool(cfg.TRAIN.FREEZE_BATCHNORM), remat=remat, accum_steps=accum,
-            augment=self._device_augment, compute_dtype=self.compute_dtype)
-        self._eval_step = make_eval_step(num_classes, compute_dtype=self.compute_dtype)
+        # the JAX trainer's routing: per-rank BatchNorm statistics only when
+        # asked for (SYNC_BN False), on more than one rank and unfrozen
+        group = self.world.group if distributed else None
+        per_device = ranks > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM
+        if per_device:
+            self._train_step = make_per_device_bn_train_step(
+                num_classes, group, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
+                augment=self._device_augment, compute_dtype=self.compute_dtype, remat=remat,
+                accum_steps=accum)
+        else:
+            self._train_step = make_train_step(
+                num_classes, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
+                freeze_bn_stats=bool(cfg.TRAIN.FREEZE_BATCHNORM), remat=remat,
+                accum_steps=accum, augment=self._device_augment,
+                compute_dtype=self.compute_dtype, group=group)
+        self._eval_step = make_eval_step(num_classes, compute_dtype=self.compute_dtype,
+                                         group=group)
+        if distributed:
+            self._log(f"distributed: {ranks} ranks over {dist.get_backend()}, rank 0 on "
+                      f"{self.device}, {'per-device' if per_device else 'global-batch'} "
+                      "BatchNorm statistics")
 
         # checkpointing (ref train.py:188-195)
         self.checkpoint = Checkpoint(self.state, save_dir=output_dir or ".", logger=logger)
@@ -111,10 +165,21 @@ class Trainer:
         # set by the SIGTERM handler (or request_preempt), read at step boundaries
         self._preempted = False
         self.history: List[Dict[str, float]] = []
-        self._tb = self._writer(tensorboard, output_dir)
+        self._tb = self._writer(tensorboard, output_dir) if self.rank == 0 else None
 
     # -- helpers -------------------------------------------------------------
+    def _seed_rank(self, step: int) -> None:
+        """Seed this rank's host, dropout and augmentation generators for
+        ``step``: rank 0 at step 0 with the run's seed (as on one device),
+        every other rank with its own (``rank_seed``)."""
+        seed = rank_seed(self._seed, self.rank, step)
+        if self.rank or step:  # rank 0 at step 0 was seeded with the run's seed
+            set_random_seed(seed)
+        self.state.generator.manual_seed(seed + 1)
+
     def _log(self, msg: str) -> None:
+        if self.rank:
+            return
         if self.logger is None:
             print(msg, flush=True)
         elif hasattr(self.logger, "info"):
@@ -137,6 +202,20 @@ class Trainer:
     def request_preempt(self) -> None:
         """Ask the epoch loop to checkpoint + stop at the next step boundary."""
         self._preempted = True
+
+    def _stop_requested(self) -> bool:
+        """Whether to stop at this step boundary: a preemption asked on any
+        rank (every rank reaches each boundary and agrees)."""
+        if self.world is not None:
+            self._preempted = self.world.any(self._preempted)
+        return self._preempted
+
+    def _save(self, name: str, block: bool = True) -> None:
+        """Save on rank 0; the other ranks wait for it."""
+        if self.rank == 0:
+            self.checkpoint.save(name, block=block, best_metric=self.best_metric)
+        if self.world is not None:
+            self.world.barrier()
 
     def _install_preempt_handlers(self):
         """SIGTERM -> request_preempt while fit() runs; returns a restore
@@ -166,6 +245,16 @@ class Trainer:
         extras = self.checkpoint.load(filename=self.cfg.MODEL.WEIGHT or None,
                                       resume=self.cfg.AUTO_RESUME,
                                       resume_states=self.cfg.RESUME_STATES)
+        if self.world is not None:
+            low, high = self.world.span(self.state.step)
+            if low != high:  # a rank read another checkpoint, or found none
+                raise RuntimeError(
+                    f"the ranks resumed at different steps ({low} to {high}): every rank "
+                    "must read the same checkpoint, so OUTPUT_DIR must lie on storage "
+                    "that all ranks share")
+            broadcast_module_(self.model, group=self.world.group)
+            if self.rank:  # the file holds rank 0's generators
+                self._seed_rank(self.state.step)
         if "best_metric" in extras:
             self.best_metric = float(extras["best_metric"])
         return extras
@@ -237,7 +326,7 @@ class Trainer:
                 skipped += 1
                 t_wait = time.perf_counter()
                 continue
-            if self._preempted:
+            if self._stop_requested():
                 break
             data_time = time.perf_counter() - t_wait
             metrics = self._train_step(self.state, self._on_device(batch, raw))
@@ -264,10 +353,11 @@ class Trainer:
     def fit(self, train_loader=None, val_loader=None) -> None:
         """Full schedule: epochs + periodic validate + checkpoints (ref train.py:207-243)."""
         cfg = self.cfg
+        distributed = self.world is not None
         if train_loader is None:
-            train_loader = build_dataloader(cfg, mode="train")
+            train_loader = build_dataloader(cfg, mode="train", distributed=distributed)
         if val_loader is None and cfg.VALIDATE.PERIOD:
-            val_loader = build_dataloader(cfg, mode="val")
+            val_loader = build_dataloader(cfg, mode="val", distributed=distributed)
         train_loader = self._loader(train_loader, self._device_augment is not None)
         if val_loader is not None:
             val_loader = self._loader(val_loader, False)
@@ -289,10 +379,9 @@ class Trainer:
                     train_loader.set_epoch(epoch)
                 meters = self.train_one_epoch(
                     train_loader, epoch, skip_steps=skip_steps if epoch == start_epoch else 0)
-                if self._preempted:
+                if self._stop_requested():
                     # blocking save: durability beats overlap on the way out
-                    self.checkpoint.save("model_latest", block=True,
-                                         best_metric=self.best_metric)
+                    self._save("model_latest")
                     self._log(f"preempted at step {self.state.step}: checkpoint committed, "
                               "stopping (AUTO_RESUME continues from this exact step)")
                     return
@@ -309,19 +398,21 @@ class Trainer:
                 period = cfg.TRAIN.CHECKPOINT_PERIOD
                 name = (f"model_{epoch:03d}" if period and (epoch + 1) % period == 0
                         else "model_latest")
-                self.checkpoint.save(name, block=block, best_metric=self.best_metric)
+                self._save(name, block=block)
 
                 if val_loader is not None and cfg.VALIDATE.PERIOD and (
                         (epoch + 1) % cfg.VALIDATE.PERIOD == 0):
                     miou = self.validate(val_loader, epoch)
                     if miou > self.best_metric:
                         self.best_metric = miou
-                        self.checkpoint.save("model_best", best_metric=self.best_metric)
+                        self._save("model_best")
                         self._log(f"New best mIoU {miou:.4f}")
         finally:
             # commit an in-flight save even when an epoch raises
             self.checkpoint.finish()
             restore_handlers()
+        if self.world is not None:
+            self.world.barrier()  # rank 0's last save committed
 
 
 class _HostBatches:
@@ -344,8 +435,10 @@ class _HostBatches:
             yield Trainer._host_batch(batch, self.raw_images)
 
 
-def train(cfg, output_dir: str = "", logger=None, device: DeviceLike = "cuda") -> Trainer:
+def train(cfg, output_dir: str = "", logger=None, device: DeviceLike = "cuda",
+          distributed: bool = False) -> Trainer:
     """Functional entry point (ref train.py:163)."""
-    trainer = Trainer(cfg, output_dir=output_dir, logger=logger, device=device)
+    trainer = Trainer(cfg, output_dir=output_dir, logger=logger, device=device,
+                      distributed=distributed)
     trainer.fit()
     return trainer
