@@ -230,12 +230,40 @@ Phases (any failure raises, so the exit code is non-zero):
    train --distributed``, a one-rank NCCL world, against the same command in
    this process: per-step losses within ``DP_TORCHRUN_RTOL``.
 
+13. Spatial sharding (``parallel/spatial_infer.py``, ``MODEL.SPATIAL_SHARDS``,
+   ``TRAIN.SPATIAL_SHARDS``; outputs under the git-ignored
+   ``build/chip_smoke_spatial/``; after phase 12) on logical shards of
+   cuda:0, which run one band after another: the phase measures the bands,
+   halos and kernels, not multi-card speed.  Each run's launches are
+   counted alone; tolerances, and why, at ``SPATIAL_LABEL_TOL``.  (a) Phase
+   3's network (phase 5's ``weights.pth``), one raw 1440x1920 frame through
+   ``SemanticSegmentation(devices=["cuda:0"] * 4)`` with
+   ``MODEL.SPATIAL_SHARDS 4`` (45 rows a band at OS8, a 36-row halo for
+   dilation 36) in bf16 and in f32, then 8 bands (22-23 rows, halos over
+   two bands) in f32: labels and logits against the unsharded predictor,
+   K4 4 (8) a frame, ms a frame against unsharded, peak memory, K4's rows
+   read.  (b) ``SegmentationNode`` with the 4-band predictor ->
+   ``MappingNode`` over phase 4's feed (K4 32, K2 8, K1 1) against the
+   same dataflow unsharded.  (c) The 4-band predictor quantized on 2
+   frames, served banded (Q1 64 a frame) against the unsharded predictor
+   with its qpack.  (d) Xception65 OS16 bf16, seeded, 4 bands (K3 240 a
+   frame) against unsharded.  (e) ``example_train.yaml`` with ``SYNC_BN
+   True`` and ``TRAIN.SPATIAL_SHARDS 3`` (513-row crops), (data 1, spatial
+   3), f32, no dropout, over phase 12(a)'s 16 centre crops: one step
+   against the one-process step (loss, confusion, running statistics,
+   parameters; K4 48, K3 144), the eval-mode gradient against the
+   one-process one (held in f64 on the plain versions, f32 reported); ``Trainer(cfg, devices=["cuda:0"] * 3)`` for 4 steps
+   (the loss falls; steps/s, images/s, peak memory); and ``main(["train",
+   ..., "TRAIN.SPATIAL_SHARDS", "3"])`` on the one card raising the
+   device-count ``ValueError``.
+
 A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
 ``nvidia-smi`` line comes before them.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import importlib.util
 import json
@@ -273,7 +301,8 @@ from vision_semantic_segmentation_tpu_torch.inference import (
 )
 from vision_semantic_segmentation_tpu_torch.evaluation import synthetic_scene as scene
 from vision_semantic_segmentation_tpu_torch.evaluation.map_eval import MapEvaluator
-from vision_semantic_segmentation_tpu_torch.models import BatchNorm2d, build_train_model
+from vision_semantic_segmentation_tpu_torch.models import BatchNorm2d, build_model, build_train_model
+from vision_semantic_segmentation_tpu_torch.models.loss import cross_entropy_loss
 from vision_semantic_segmentation_tpu_torch.models.convert import load_weights
 from vision_semantic_segmentation_tpu_torch.ops.colormap import MAPILLARY_19_PALETTE
 from vision_semantic_segmentation_tpu_torch.ops.colormap import palette_from_cfg
@@ -281,10 +310,14 @@ from vision_semantic_segmentation_tpu_torch.ops.resize import resize_area
 from vision_semantic_segmentation_tpu_torch.device import resolve_device
 from vision_semantic_segmentation_tpu_torch.parallel import (
     TrainState,
+    create_mesh,
     local_devices,
     make_per_device_bn_train_step,
+    make_spatial_train_step,
     make_train_step,
+    spatial_infer,
 )
+from vision_semantic_segmentation_tpu_torch.parallel.train_step import spatial_loss
 from vision_semantic_segmentation_tpu_torch.parallel.distributed import all_reduce_
 from vision_semantic_segmentation_tpu_torch.train.build import build_dataloader
 from vision_semantic_segmentation_tpu_torch.train.checkpoint import Checkpoint
@@ -293,6 +326,7 @@ from vision_semantic_segmentation_tpu_torch.train.optim import (
     build_schedule,
     build_scheduler,
 )
+from vision_semantic_segmentation_tpu_torch.train.trainer import Trainer
 from vision_semantic_segmentation_tpu_torch.train.transforms import Compose, Normalize, ToTensor
 from vision_semantic_segmentation_tpu_torch.utils import image_io
 from vision_semantic_segmentation_tpu_torch.runtime import (
@@ -3187,6 +3221,380 @@ def data_parallel_phase(smi: str) -> None:
     print(f"phase 12 (data-parallel training) {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# -- phase 13: spatial sharding at full width ----------------------------------------
+SPATIAL = REPO / "build" / "chip_smoke_spatial"
+SPATIAL_SHARDS = 4
+# Banded and unbanded forwards are one arithmetic but for the convolutions'
+# algorithms, which cuDNN picks per shape: in f32 (TF32 off) an output sums
+# its terms in another order (about 1e-6 relative); in bf16 every activation
+# rounds to 8 bits (2^-8), so a last-bit difference in one layer moves the
+# roundings after it.  Labels then differ only at near-ties of the two top
+# classes.  A broken halo garbles whole rows at every band edge (3 edges x
+# tens of rows of a 176-row label map: more than 5 % of the pixels), far
+# above these shares.
+SPATIAL_LABEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}  # share of pixels
+# of the unsharded logits' largest |value|: bf16 as SERVE_TOL (2^-4, 16
+# blocks of 2^-8 roundings), f32 a thousand f32 roundings deep
+SPATIAL_LOGIT_TOL = {torch.bfloat16: 2.0 ** -4, torch.float32: 1e-4}
+# (b): the grid folds 8 frames of 10**5 points each into 4 M cells; a label
+# that flips moves one point's evidence to another class
+SPATIAL_MAP_TOL = 1e-3   # share of the rendered map's cells that differ
+SPATIAL_GRID_TOL = 1e-3  # share of the grid's cells whose evidence differs by > 1e-3
+# (e): tests/test_spatial_train.py::_assert_matches' envelope for train-mode
+# BatchNorm in f32 (loss absolute, confusion cell as a share of the pixels
+# with equal totals, running statistics absolute, parameters as a share of
+# max(1, their largest)).  Eval-mode gradients per leaf of its largest value,
+# in f64 (the plain versions): in f32 a BatchNorm bias's gradient sums about
+# 8 M terms that cancel to a small total, and one f32 sum over all of them
+# can lie a fifth from its f64 value (one process's, on the H100); a broken
+# halo would move every conv's gradient upstream of it
+SPATIAL_TRAIN_TOL = {"loss": 2e-4, "cell": 1e-2, "stats": 5e-3, "param": 5e-2}
+SPATIAL_GRAD_RTOL = 1e-3
+SPATIAL_TRAIN_SHARDS = 3  # 513-row crops: 171 rows a band (4 does not divide 513)
+
+
+def spatial_agreement(what: str, base: SemanticSegmentation, banded: SemanticSegmentation,
+                      image, dtype) -> None:
+    """Labels and logits of the banded predictor against the unsharded one."""
+    want, got = base.logits(image), banded.logits(image)
+    scale = float(want.float().abs().max())
+    logit_err = float((got.float() - want.float()).abs().max()) / scale
+    differ = float((got.argmax(-1) != want.argmax(-1)).float().mean())
+    labels = banded.segmentation(image)
+    same = bool(np.array_equal(labels, base.segmentation(image)))
+    print(f"  {what}: labels differ on {differ:.3e} of the pixels (tolerance "
+          f"{SPATIAL_LABEL_TOL[dtype]}; segmentation() equal: {same}), logits max |diff| "
+          f"{logit_err:.3e} of the largest |logit| {scale:.3f} (tolerance "
+          f"{SPATIAL_LOGIT_TOL[dtype]})", flush=True)
+    if differ > SPATIAL_LABEL_TOL[dtype] or logit_err > SPATIAL_LOGIT_TOL[dtype]:
+        raise AssertionError(f"{what}: banded forward outside the tolerances")
+
+
+def spatial_time(what: str, predictor: SemanticSegmentation, image, want: dict, smi: str):
+    """One frame's launches counted alone, then ms a frame (host clock,
+    synchronised, 3 frames) and the peak memory of one frame."""
+    predictor.labels(image)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    predictor.labels(image)
+    launches = launches_now()
+    expected = {k.name: 0 for k in K.kernels()}
+    expected.update(want)
+    if launches != expected:
+        raise AssertionError(f"{what}: launch counts {launches} != expected {expected}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        predictor.labels(image)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {what}: {ms:.2f} ms a frame (host clock, synchronised, 3 frames) on {smi}, "
+          f"peak memory allocated {peak:.2f} GiB; launches a frame "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return ms
+
+
+def spatial_net_cfg(net_cfg, shards: int):
+    cfg = net_cfg.clone()
+    cfg.MODEL.SPATIAL_SHARDS = shards
+    return cfg
+
+
+def spatial_serving(state: dict, image, smi: str) -> SemanticSegmentation:
+    """(a) The main path's network, one raw 1440x1920 frame, 4 bands in bf16
+    and f32, 8 bands in f32, against the unsharded predictor.  Returns the
+    bf16 4-band predictor."""
+    net = online_cfg().VISION_SEM_SEG.SEM_SEG_NETWORK
+    dilations = ASPP_DILATIONS
+    kept = None
+    for dtype, shards in ((torch.bfloat16, 4), (torch.float32, 4), (torch.float32, 8)):
+        name = f"{shards} bands {str(dtype).split('.')[-1]}"
+        base = SemanticSegmentation(net, state_dict=state, compute_dtype=dtype, device="cuda")
+        banded = SemanticSegmentation(spatial_net_cfg(net, shards), state_dict=state,
+                                      compute_dtype=dtype, device="cuda",
+                                      devices=["cuda:0"] * shards)
+        rows = spatial_infer.k4_rows(180, shards, dilations)
+        print(f"13(a) {name}: ResNeXt50 OS8 at 1440x1920, {shards} logical shards of cuda:0 "
+              f"({spatial_infer.row_bounds(180, shards)} rows of the 180-row OS8 map); K4 reads "
+              f"{' + '.join(map(str, rows))} = {sum(rows)} rows against 180 unsharded "
+              f"({sum(rows) / 180:.2f}x)", flush=True)
+        spatial_agreement(name, base, banded, image, dtype)
+        ms0 = spatial_time(f"{name} unsharded", base, image, {"aspp_depthwise3x3_multi": 1},
+                           smi)
+        ms1 = spatial_time(f"{name} banded", banded, image,
+                           {"aspp_depthwise3x3_multi": shards}, smi)
+        print(f"  {name}: banded {ms1 / ms0:.2f}x the unsharded frame", flush=True)
+        if dtype == torch.bfloat16:
+            kept = banded
+        del base, banded
+        torch.cuda.empty_cache()
+    return kept
+
+
+def spatial_dataflow(banded: SemanticSegmentation, state: dict, smi: str) -> None:
+    """(b) SegmentationNode with the 4-band predictor -> MappingNode over
+    phase 4's feed, against the same dataflow unsharded."""
+    cfg = online_cfg()
+    cfg.OUTPUT_DIR = str(SPATIAL)
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    feed = make_online_feed(seed=200)
+
+    def node(predictor):
+        def make(bus):
+            SegmentationNode(cfg, bus, predictor=predictor)
+            return MappingNode(cfg, bus, device="cuda")
+        return make
+
+    base = SemanticSegmentation(net, state_dict=state, compute_dtype=torch.bfloat16,
+                                device="cuda")
+    grid0, map0, _ = online_run("13(b) two-node unsharded", node(base), feed, smi)
+    grid, color_map, launches = online_run("13(b) two-node, 4 bands", node(banded), feed, smi)
+    check_launches("13(b) two-node, 4 bands", launches, k4=SPATIAL_SHARDS * WINDOW)
+    cells = float(((grid - grid0).abs() > 1e-3).any(0).float().mean())
+    mismatch = float(np.mean(np.any(np.asarray(color_map) != np.asarray(map0), axis=-1)))
+    print(f"13(b): against the unsharded dataflow: grid cells differing by > 1e-3 "
+          f"{cells:.3e} (tolerance {SPATIAL_GRID_TOL}), map cells differing {mismatch:.3e} "
+          f"(tolerance {SPATIAL_MAP_TOL})", flush=True)
+    if cells > SPATIAL_GRID_TOL or mismatch > SPATIAL_MAP_TOL:
+        raise AssertionError("13(b): banded dataflow outside the tolerances")
+    if not bool(torch.isfinite(grid).all()) or float(grid.sum()) <= 0:
+        raise AssertionError("13(b): grid not finite or empty")
+
+
+def spatial_int8(banded: SemanticSegmentation, state: dict, image, calib: list,
+                 smi: str) -> None:
+    """(c) The 4-band predictor quantized on 2 frames, served banded (Q1 16
+    sites x 4 bands a frame) against the unsharded predictor with its qpack."""
+    net = online_cfg().VISION_SEM_SEG.SEM_SEG_NETWORK
+    t0 = time.perf_counter()
+    banded.quantize(calib)
+    print(f"13(c) int8: calibrated on {len(calib)} frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    base = SemanticSegmentation(net, state_dict=state, compute_dtype=torch.bfloat16,
+                                device="cuda")
+    base._set_qpack(banded.qpack)
+    spatial_agreement("int8 4 bands", base, banded, image, torch.bfloat16)
+    ms0 = spatial_time("int8 unsharded", base, image,
+                       {"aspp_depthwise3x3_multi": 1, "int8_conv3x3": 16}, smi)
+    ms1 = spatial_time("int8 4 bands", banded, image,
+                       {"aspp_depthwise3x3_multi": SPATIAL_SHARDS,
+                        "int8_conv3x3": 16 * SPATIAL_SHARDS}, smi)
+    print(f"  int8: banded {ms1 / ms0:.2f}x the unsharded frame", flush=True)
+
+
+def spatial_xception(image, smi: str) -> None:
+    """(d) Xception65 OS16 bf16, seeded, BatchNorm statistics from one
+    frame, 4 bands against unsharded: K3 60 sites x 4 bands a frame."""
+    net = xception_cfg().VISION_SEM_SEG.SEM_SEG_NETWORK
+    base = SemanticSegmentation(net, state_dict=build_model(
+        net, device="cuda", generator=torch.Generator().manual_seed(7)).state_dict(),
+        compute_dtype=torch.bfloat16, device="cuda")
+    for m in base.model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+            m.reset_running_stats()
+    base.model.train()
+    base.labels(image)
+    base.model.eval()
+    state = base.model.state_dict()
+    banded = SemanticSegmentation(spatial_net_cfg(net, SPATIAL_SHARDS), state_dict=state,
+                                  compute_dtype=torch.bfloat16, device="cuda",
+                                  devices=["cuda:0"] * SPATIAL_SHARDS)
+    spatial_agreement("13(d) Xception65 4 bands", base, banded, image, torch.bfloat16)
+    ms0 = spatial_time("Xception65 unsharded", base, image,
+                       {"depthwise3x3_dilated": XCEPTION_K3_SITES}, smi)
+    ms1 = spatial_time("Xception65 4 bands", banded, image,
+                       {"depthwise3x3_dilated": XCEPTION_K3_SITES * SPATIAL_SHARDS}, smi)
+    print(f"  Xception65: banded {ms1 / ms0:.2f}x the unsharded frame", flush=True)
+
+
+def spatial_train_cfg():
+    cfg = dp_cfg()
+    cfg.merge_from_list(["MODEL.SYNC_BN", "True",
+                         "TRAIN.SPATIAL_SHARDS", str(SPATIAL_TRAIN_SHARDS)])
+    return cfg
+
+
+def spatial_train_step(smi: str) -> None:
+    """(e) One spatial step (data 1 x spatial 3 of cuda:0, f32, TF32 off, no
+    dropout) over phase 7's 16 centre crops against the one-process step;
+    then one eval-mode gradient against the one-process one."""
+    cfg = spatial_train_cfg()
+    init = torch.load(DP / "init.pt")
+    batch = {k: v.cuda() for k, v in torch.load(DP / "batch.pt").items()}
+    mesh = create_mesh((1, SPATIAL_TRAIN_SHARDS), ("data", "spatial"),
+                       devices=["cuda:0"] * SPATIAL_TRAIN_SHARDS)
+    ref_state = dp_state(cfg, init)
+    ref = make_train_step(19)(ref_state, batch)
+    want = dp_host_state(ref_state)
+    del ref_state
+    state = dp_state(cfg, init)
+    step = make_spatial_train_step(19, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = step(state, batch)
+    launches = launches_now()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    have = dp_host_state(state)
+    loss_d = abs(float(got["loss"]) - float(ref["loss"]))
+    cm0, cm1 = ref["confusion"].cpu(), got["confusion"].cpu()
+    cell = float((cm1 - cm0).abs().max()) / float(cm0.sum())
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    params = [k for k, _ in state.model.named_parameters()]
+    stat_d = max(float((have[k] - want[k]).abs().max()) for k in stats)
+    param_d = max(float((have[k] - want[k]).abs().max())
+                  / max(1.0, float(want[k].abs().max())) for k in params)
+    print(f"13(e) one spatial train step, ResNeXt50-32x4d OS16 f32 (TF32 off), batch 16 of "
+          f"513x513, (data 1, spatial {SPATIAL_TRAIN_SHARDS}) logical shards of cuda:0, against "
+          f"one process on {smi}: loss {float(got['loss'])!r} against {float(ref['loss'])!r} "
+          f"(|diff| {loss_d:.3e}, tolerance {SPATIAL_TRAIN_TOL['loss']}); confusion totals "
+          f"{float(cm1.sum()):.0f} / {float(cm0.sum()):.0f}, largest cell |diff| {cell:.3e} of "
+          f"the pixels (tolerance {SPATIAL_TRAIN_TOL['cell']}); running statistics max |diff| "
+          f"{stat_d:.3e} (tolerance {SPATIAL_TRAIN_TOL['stats']}); parameters max |diff| "
+          f"{param_d:.3e} of max(1, their largest) (tolerance {SPATIAL_TRAIN_TOL['param']}); "
+          f"step {step_s * 1e3:.1f} ms host clock, peak memory {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want_launches = {k.name: 0 for k in K.kernels()}
+    want_launches.update({"aspp_depthwise3x3_multi": TRAIN_BATCH * SPATIAL_TRAIN_SHARDS,
+                          "depthwise3x3_dilated": 3 * TRAIN_BATCH * SPATIAL_TRAIN_SHARDS})
+    if launches != want_launches:
+        raise AssertionError(f"13(e): launches {launches} != {want_launches}")
+    if (loss_d > SPATIAL_TRAIN_TOL["loss"] or float(cm1.sum()) != float(cm0.sum())
+            or cell > SPATIAL_TRAIN_TOL["cell"] or stat_d > SPATIAL_TRAIN_TOL["stats"]
+            or param_d > SPATIAL_TRAIN_TOL["param"]):
+        raise AssertionError("13(e): spatial step outside the tolerances")
+    del state, got, ref
+    torch.cuda.empty_cache()
+
+    # eval-mode gradients (running statistics): the backward's halos pinned
+    half = {k: v[:4] for k, v in batch.items()}
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        for banded in (False, True):
+            with (K.plain_versions() if dtype == torch.float64 else contextlib.nullcontext()):
+                grads[dtype, banded] = spatial_eval_grads(cfg, init, mesh, half, dtype, banded)
+    rel = {dtype: {k: float((grads[dtype, True][k] - a).abs().max())
+                   / max(float(a.abs().max()), 1e-30)
+                   for k, a in grads[dtype, False].items()}
+           for dtype in (torch.float64, torch.float32)}
+    worst64 = max(rel[torch.float64].values())
+    leaf = max(rel[torch.float32], key=rel[torch.float32].get)
+    exact = grads[torch.float64, False][leaf]
+    off = [float((grads[torch.float32, b][leaf].double() - exact).abs().max())
+           / float(exact.abs().max()) for b in (False, True)]
+    print(f"13(e) eval-mode gradient, 4 crops, banded against one process: f64 (plain "
+          f"versions) largest per-leaf |diff| {worst64:.3e} of the leaf's largest (tolerance "
+          f"{SPATIAL_GRAD_RTOL}); f32 (kernels) {rel[torch.float32][leaf]:.3e} at {leaf}, "
+          f"whose f32 gradients lie {off[0]:.3e} (one process) and {off[1]:.3e} (banded) from "
+          f"its f64 value (a bias gradient: about 8 M terms that cancel, summed in f32); "
+          f"{sum(v > SPATIAL_GRAD_RTOL for v in rel[torch.float32].values())} of "
+          f"{len(rel[torch.float32])} f32 leaves above {SPATIAL_GRAD_RTOL}", flush=True)
+    if worst64 > SPATIAL_GRAD_RTOL:
+        raise AssertionError("13(e): eval-mode gradients differ")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def spatial_eval_grads(cfg, init: dict, mesh, batch: dict, dtype, banded: bool) -> dict:
+    """The parameters' gradients of the eval-mode (running statistics) loss,
+    one process or banded over ``mesh``, in ``dtype``."""
+    model = dp_state(cfg, init).model.to(dtype).eval()
+    x = batch["image"].to(dtype).permute(0, 3, 1, 2)
+    if banded:
+        engine = spatial_infer.SpatialModel(model, mesh, spatial_axis="spatial",
+                                            data_axis="data")
+        labels = spatial_infer.Bands.split(batch["label"], engine.groups, 1)
+        loss, _ = spatial_loss(engine(engine.split(x), upsample_pred=True), labels, 19, 255,
+                               engine.home)
+    else:
+        loss = cross_entropy_loss(model(x, upsample_pred=True), batch["label"])
+    loss.backward()
+    return {k: p.grad.detach().double() for k, p in model.named_parameters()}
+
+
+def spatial_trainer(smi: str) -> None:
+    """(e) ``Trainer(cfg, devices=["cuda:0"] * 3)`` for 4 steps (2 epochs of
+    phase 7's 32 frames), against phase 7's one-process run; then the
+    command line on the card's one device raises the device-count error."""
+    out = SPATIAL / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = get_train_cfg_defaults()
+    cfg.merge_from_file(str(REPO / "configs" / "example_train.yaml"))
+    cfg.merge_from_list(["DATASET.ROOT_DIR", str(TRAIN / "data"), "OUTPUT_DIR", str(out),
+                         "SCHEDULER.MAX_EPOCH", "2", "DATALOADER.NUM_WORKERS", "8",
+                         "TRAIN.AUGMENTATION", TRAIN_AUG, "VALIDATE.AUGMENTATION", VAL_AUG,
+                         "MODEL.SYNC_BN", "True",
+                         "TRAIN.SPATIAL_SHARDS", str(SPATIAL_TRAIN_SHARDS)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, output_dir=str(out), device="cuda",
+                      devices=["cuda:0"] * SPATIAL_TRAIN_SHARDS)
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    batch_t = np.median([h["batch_time"] for h in hist])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    val_frames = sum(1 for _ in (TRAIN / "data" / "validation" / "images").iterdir())
+    want = {k.name: 0 for k in K.kernels()}
+    want.update({"aspp_depthwise3x3_multi": SPATIAL_TRAIN_SHARDS * (
+                     TRAIN_BATCH * len(hist) + val_frames * 2),
+                 "depthwise3x3_dilated": 3 * TRAIN_BATCH * SPATIAL_TRAIN_SHARDS * len(hist)})
+    print(f"13(e) Trainer, {SPATIAL_TRAIN_SHARDS} spatial shards of cuda:0, f32: {len(hist)} "
+          f"steps in {wall:.1f} s on {smi}; median step {batch_t * 1e3:.1f} ms = "
+          f"{1 / batch_t:.3f} steps/s = {TRAIN_BATCH / batch_t:.2f} images/s (host clock "
+          f"between steps; phase 7's one-process f32 run above); peak memory allocated "
+          f"{peak:.2f} GiB; loss per step {[round(v, 4) for v in losses]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if len(hist) != 4 or launches != want:
+        raise AssertionError(f"13(e) Trainer: {len(hist)} steps, launches {launches} != {want}")
+    if not (all(np.isfinite(losses)) and np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise AssertionError(f"13(e) Trainer: the loss did not fall: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    try:
+        cli_main(["train", "--cfg", str(REPO / "configs" / "example_train.yaml"),
+                  "DATASET.ROOT_DIR", str(TRAIN / "data"), "OUTPUT_DIR", str(out / "cli"),
+                  "MODEL.SYNC_BN", "True", "TRAIN.SPATIAL_SHARDS", str(SPATIAL_TRAIN_SHARDS),
+                  "--device", "cuda"])
+    except ValueError as exc:
+        if "does not divide the device count" not in str(exc):
+            raise
+        print(f"13(e) train command with TRAIN.SPATIAL_SHARDS {SPATIAL_TRAIN_SHARDS} on "
+              f"{torch.cuda.device_count()} card(s): ValueError({exc})", flush=True)
+    else:
+        raise AssertionError("13(e): the train command took 3 spatial shards on one card")
+
+
+def spatial_phase(smi: str) -> None:
+    """Phase 13: spatial sharding at full width on logical shards of cuda:0.
+    They run one band after another on the one card, so the phase measures
+    the bands, halos and kernels, not multi-card speed."""
+    t0 = time.perf_counter()
+    SPATIAL.mkdir(parents=True, exist_ok=True)
+    state = load_weights(str(CLI / "weights.pth"))
+    feed = make_online_feed(seed=200)
+    image = feed[0]["image"]
+    banded = spatial_serving(state, image, smi)
+    spatial_dataflow(banded, state, smi)
+    spatial_int8(banded, state, image, [f["image"] for f in feed[1:3]], smi)
+    del banded
+    torch.cuda.empty_cache()
+    spatial_xception(image, smi)
+    torch.cuda.empty_cache()
+    spatial_train_step(smi)
+    spatial_trainer(smi)
+    print(f"phase 13 (spatial sharding) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def sweep(smi: str) -> None:
     """Launch choices at the main path's shapes, each checked against the
     default's output and timed with CUDA events on one set of inputs: K4's
@@ -3347,6 +3755,8 @@ def main() -> None:
     clock(start, "phase 11 (parallel replay)")
     data_parallel_phase(smi)
     clock(start, "phase 12 (data-parallel training)")
+    spatial_phase(smi)
+    clock(start, "phase 13 (spatial sharding)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))

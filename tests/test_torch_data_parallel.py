@@ -589,7 +589,7 @@ def test_rank_streams_are_distinct_and_repeatable(trainers, stream):
     ("accum", "NotImplementedError", "GRAD_ACCUM_STEPS > 1 requires the SyncBN"),
     ("batch", "ValueError", "does not split over 2 ranks"),
     ("micro", "ValueError", "not divisible by TRAIN.GRAD_ACCUM_STEPS=4 x 2 ranks"),
-    ("spatial", "NotImplementedError", "item 5"),
+    ("spatial", "NotImplementedError", "row bands across the ranks"),
 ])
 def test_trainer_refusals_on_two_ranks(trainers, name, kind, words):
     for r in trainers:

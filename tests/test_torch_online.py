@@ -404,12 +404,14 @@ def _qpack(cfg, bus):
 
 
 def _spatial(cfg, bus):
+    """Spatially sharded serving is ported (tests/test_torch_spatial_infer.py);
+    more shards than the one CPU device are refused, as in the JAX package."""
     cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.SPATIAL_SHARDS = 4
     SemanticSegmentation(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device="cpu")
 
 
 @pytest.mark.parametrize("make,error,match", [(_qpack, ValueError, "DeepLabV3"),
-                                              (_spatial, NotImplementedError, "ROADMAP")],
+                                              (_spatial, ValueError, "devices")],
                          ids=["qpack", "spatial_shards"])
 def test_unported_options_refused(make, error, match, tmp_path):
     cfg = get_cfg_defaults()

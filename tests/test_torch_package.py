@@ -15,6 +15,8 @@ from vision_semantic_segmentation_tpu import config as j_config
 from vision_semantic_segmentation_tpu_torch import config
 from vision_semantic_segmentation_tpu_torch.mapping import SemanticMappingEngine
 from vision_semantic_segmentation_tpu_torch.models import build_model
+from vision_semantic_segmentation_tpu_torch.models.build import Dummy
+from vision_semantic_segmentation_tpu_torch.parallel import create_mesh, make_spatial_forward
 from vision_semantic_segmentation_tpu_torch.inference import SemanticSegmentation
 from vision_semantic_segmentation_tpu_torch.runtime import (
     FusedFramePipeline,
@@ -56,7 +58,8 @@ def test_no_jax_imports():
               "runtime.node", "utils.logger", "utils.file_io", "models.quant",
               "ops.kernels.int8_conv", "runtime.native_io", "train.tensorboard_util",
               "train.datasets.bdd", "train.datasets.pascal", "train.datasets.preparation",
-              "models.xception", "ops.sort", "runtime.export", "runtime.serving_pareto"}
+              "models.xception", "ops.sort", "runtime.export", "runtime.serving_pareto",
+              "parallel.spatial_infer"}
     assert {f"{port.__name__}.{m}" for m in online} <= walked
     assert result["bad"] == []
 
@@ -102,6 +105,11 @@ def test_config_copy_matches():
     assert config.get_train_cfg_defaults() == j_config.get_train_cfg_defaults()
 
 
+def _spatial(cfg):
+    cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.SPATIAL_SHARDS = 4
+    return cfg
+
+
 def _xception(cfg):
     net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
     net.MODEL.TYPE, net.MODEL.OUTPUT_STRIDE = "Xception", 16
@@ -130,10 +138,13 @@ def _xception(cfg):
     lambda cfg: cli_main(["autotune", "--out", f"{cfg.OUTPUT_DIR}/t.yaml"]),
     lambda cfg: cli_main(["autotune", "--serving", "--out", f"{cfg.OUTPUT_DIR}/s.yaml"]),
     lambda cfg: build_model(_xception(cfg).VISION_SEM_SEG.SEM_SEG_NETWORK),
+    lambda cfg: make_spatial_forward(Dummy(19), create_mesh(axis_names=("grid",))),
+    lambda cfg: SemanticSegmentation(_spatial(cfg).VISION_SEM_SEG.SEM_SEG_NETWORK, state_dict={}),
 ], ids=["pipeline", "replay", "engine", "build_model", "predictor", "segmentation_node",
         "mapping_node", "fused_online_node", "run_online", "cli", "profile_stages",
         "generate_video", "cli_profile", "tune", "sweep_fps", "score_quality", "cli_compile",
-        "cli_autotune", "cli_autotune_serving", "build_xception"])
+        "cli_autotune", "cli_autotune_serving", "build_xception", "make_spatial_forward",
+        "spatial_predictor"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -523,11 +523,13 @@ def test_train_command_on_cpu(tmp_path):
 
 
 def test_trainer_refuses_multi_device(tmp_path):
-    """Spatially sharded training is item 5, with or without ranks."""
+    """Two spatial shards do not divide the one CPU device (the JAX
+    trainer's ValueError); bands across the ranks of a process group are
+    not ported."""
     cfg = _dummy_cfg(tmp_path, ["TRAIN.SPATIAL_SHARDS", "2"])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="SPATIAL_SHARDS=2 does not divide the device count 1"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu", distributed=True)
 
 

@@ -56,8 +56,11 @@ custom ops in it); ``autotune`` times the grid update's
 ``FOLD_METHOD``/``SORT_METHOD``/``UPDATE_WINDOW`` candidates and writes
 the winner as a YAML overlay (``runtime/tuning.py``); ``autotune
 --serving`` sweeps operating points for frames/s and golden-scene mIoU
-(``runtime/serving_pareto.py``).  Not ported yet: ``MODEL.SPATIAL_SHARDS``
-/ ``TRAIN.SPATIAL_SHARDS`` (ROADMAP queue 1 item 5).
+(``runtime/serving_pareto.py``).  ``MODEL.SPATIAL_SHARDS`` bands the
+two-node dataflow's frames over the device's local cards
+(``inference/predictor.py``) and ``TRAIN.SPATIAL_SHARDS`` the training
+crops (``train/trainer.py``); with fewer cards than shards each raises
+the JAX package's ``ValueError``.
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the

@@ -9,13 +9,20 @@ the forward's ASPP runs K4.  The JAX package's per-shape compile cache is a
 Int8 serving (``models/quant.py``): ``MODEL.QPACK`` names a qpack (written
 by either package) that loads onto the device, or :meth:`quantize`
 calibrates one on frames; every forward then runs the int8 backbone (Q1 on
-its 3x3 sites on the card) and the float ASPP (K4) and decoder.  Not ported
-yet: spatially sharded serving (``MODEL.SPATIAL_SHARDS``; ROADMAP queue 1
-item 5) raises ``NotImplementedError``.
+its 3x3 sites on the card) and the float ASPP (K4) and decoder.
+
+Spatially sharded serving (``MODEL.SPATIAL_SHARDS`` > 1): every frame's
+rows band over a ``("grid",)`` mesh of the first ``SPATIAL_SHARDS`` of
+``devices`` (``parallel/spatial_infer.py``: explicit row halos, K4, K3 and
+Q1 on halo-extended bands), and the labels, confidences and logits come
+back whole.  A device may repeat (logical shards of one card).  The int8
+path composes (Q1 and ``_int_mm`` per band).  The fused paths
+(``runtime/pipeline.py``) run the unsharded network and ignore the flag,
+as the JAX package's do.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +40,8 @@ from ..models.quant import (
 from ..ops.colormap import MAPILLARY_19_PALETTE, apply_color_map
 from ..ops.resize import resize_area, resize_nearest
 from ..ops.warp import undistort
+from ..parallel.mesh import create_mesh, local_devices
+from ..parallel.spatial_infer import Bands, SpatialModel
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -50,20 +59,28 @@ class SemanticSegmentation:
             (a reference ``.pth`` or the JAX package's ``.npz``).
         compute_dtype: 'bfloat16' (default) or 'float32', or a torch dtype.
         device: where the network runs; CUDA unless the caller asks for the CPU.
+        devices: the mesh of ``MODEL.SPATIAL_SHARDS`` > 1 (its first
+            ``SPATIAL_SHARDS`` devices; a device may repeat); default every
+            local device of ``device``'s type.  Fewer than the shards raise.
     """
 
     def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  variables=None, compute_dtype: Union[str, torch.dtype, None] = None,
-                 device: DeviceLike = "cuda"):
-        if int(cfg.MODEL.get("SPATIAL_SHARDS", 0)) > 1:
-            raise NotImplementedError(
-                "MODEL.SPATIAL_SHARDS: spatially sharded serving is not ported "
-                "(ROADMAP queue 1 item 5, parallel/)")
+                 device: DeviceLike = "cuda", devices: Optional[Sequence[DeviceLike]] = None):
+        shards = int(cfg.MODEL.get("SPATIAL_SHARDS", 0))
+        self.device = resolve_device(device)
+        self._mesh = None
+        if shards > 1:
+            if devices is None:
+                devices = local_devices(self.device.type)
+            if len(devices) < shards:
+                raise ValueError(f"MODEL.SPATIAL_SHARDS={shards} needs {shards} devices; "
+                                 f"{len(devices)} given or visible")
+            self._mesh = create_mesh(axis_names=("grid",), devices=list(devices)[:shards])
         if compute_dtype is None:
             compute_dtype = cfg.MODEL.get("COMPUTE_DTYPE", "bfloat16")
         self.dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.model = build_model(cfg, dtype=self.dtype, device=self.device)
         self._weight_file = None  # quantize() reads it again for f32 weights
         if state_dict is None:
@@ -79,6 +96,7 @@ class SemanticSegmentation:
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
         self.qpack = None
         self._qbackbone = None
+        self._spatial = None if self._mesh is None else SpatialModel(self.model, self._mesh)
         if cfg.MODEL.get("QPACK"):
             self._set_qpack(load_qpack(cfg.MODEL.QPACK, self._groups()))
 
@@ -92,6 +110,8 @@ class SemanticSegmentation:
         """Serve ``qpack`` (``models/quant.py``'s form) from now on."""
         self._qbackbone = QuantBackbone(self.model.backbone, qpack, self.dtype, self.device)
         self.qpack = qpack
+        if self._spatial is not None:
+            self._spatial.set_qpack(qpack, self.dtype, self._qbackbone)
 
     def quantize(self, calib_images) -> None:
         """Switch to the int8-backbone serving path (``models/quant.py``).
@@ -113,15 +133,24 @@ class SemanticSegmentation:
             state_dict = load_weights(self._weight_file)
         self._set_qpack(quantize_deeplab(self.model, frames, state_dict))
 
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC -> the network's NCHW input (a channels-last view)."""
+        xf = (x.float() / 255.0 - self._mean.to(x.device)) / self._std.to(x.device)
+        return xf.permute(0, 3, 1, 2).to(self.dtype)
+
     @torch.no_grad()
-    def _logits(self, image, upsample_pred: bool) -> torch.Tensor:
-        """(H, W, 3) or (N, H, W, 3) uint8 -> (N, classes, h', w') logits."""
-        x = torch.as_tensor(image, device=self.device)
-        xf = (x.float() / 255.0 - self._mean) / self._std
-        if xf.ndim == 3:
-            xf = xf[None]
-        # NHWC memory is already channels-last for the NCHW view
-        x = xf.permute(0, 3, 1, 2).to(self.dtype)
+    def _logits(self, image, upsample_pred: bool):
+        """(H, W, 3) or (N, H, W, 3) uint8 -> (N, classes, h', w') logits;
+        with spatial shards, their :class:`Bands`."""
+        x = torch.as_tensor(image)
+        if x.ndim == 3:
+            x = x[None]
+        if self._spatial is not None:
+            # the raw frame's rows go to their bands, normalised there
+            bands = self._spatial.split(x, dim=1)
+            bands = bands.like([[self._normalize(t) for t in ts] for ts in bands.parts], dim=2)
+            return self._spatial(bands, upsample_pred=upsample_pred)
+        x = self._normalize(x.to(self.device))
         if self._qbackbone is not None:
             return quant_deeplab_forward(self.model, self._qbackbone, x, upsample_pred)
         return self.model(x, upsample_pred=upsample_pred)
@@ -130,10 +159,18 @@ class SemanticSegmentation:
     def _squeeze(t: torch.Tensor) -> torch.Tensor:
         return t[0] if t.shape[0] == 1 else t
 
+    def _whole(self, bands, fn) -> torch.Tensor:
+        """``fn`` per band of banded logits (over the class axis), the
+        result gathered on the predictor's device; ``fn`` of the tensor
+        otherwise."""
+        if not isinstance(bands, Bands):
+            return fn(bands)
+        return bands.like([[fn(t) for t in ts] for ts in bands.parts], dim=1).gather(self.device)
+
     def labels(self, image, upsample_pred: bool = False) -> torch.Tensor:
         """uint8 RGB frame -> int32 label map, left on the device."""
         logits = self._logits(image, upsample_pred)
-        return self._squeeze(torch.argmax(logits, dim=1).to(torch.int32))
+        return self._squeeze(self._whole(logits, lambda t: torch.argmax(t, dim=1).to(torch.int32)))
 
     def segmentation(self, image, upsample_pred: bool = False) -> np.ndarray:
         """uint8 RGB (H, W, 3) -> int32 label map (ref :41-57).
@@ -152,13 +189,16 @@ class SemanticSegmentation:
         The softmax runs in f32 whatever the compute dtype.
         """
         logits = self._logits(image, upsample_pred)
-        labels = torch.argmax(logits, dim=1).to(torch.int32)
-        conf = torch.softmax(logits.float(), dim=1).amax(dim=1)
+        labels = self._whole(logits, lambda t: torch.argmax(t, dim=1).to(torch.int32))
+        conf = self._whole(logits, lambda t: torch.softmax(t.float(), dim=1).amax(dim=1))
         return self._squeeze(labels).cpu().numpy(), self._squeeze(conf).cpu().numpy()
 
     def logits(self, image, upsample_pred: bool = False) -> torch.Tensor:
         """Raw logits in the JAX package's layout, (N, h', w', classes)."""
-        return self._logits(image, upsample_pred).permute(0, 2, 3, 1)
+        logits = self._logits(image, upsample_pred)
+        if isinstance(logits, Bands):
+            logits = logits.gather(self.device)
+        return logits.permute(0, 2, 3, 1)
 
 
 def colorize_labels(labels, palette: np.ndarray = MAPILLARY_19_PALETTE) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The device mesh, frame-parallel replay, the row-sharded grid, the process
-group of data-parallel training and the training steps of the port.
-Spatial sharding (ROADMAP queue 1 item 5) is not ported yet."""
+group of data-parallel training, the spatially sharded (row-banded) forward
+and the training steps of the port."""
 from .mesh import (
     Mesh,
     NamedSharding,
@@ -22,8 +22,11 @@ from .train_step import (
     make_eval_step,
     make_multi_train_step,
     make_per_device_bn_train_step,
+    make_spatial_eval_step,
+    make_spatial_train_step,
     make_train_step,
 )
+from .spatial_infer import Bands, SpatialModel, make_spatial_forward, replicate_variables, shard_image
 from .grid_shard import (
     ShardedGrid,
     gather_grid,
@@ -55,7 +58,14 @@ __all__ = [
     "make_eval_step",
     "make_multi_train_step",
     "make_per_device_bn_train_step",
+    "make_spatial_eval_step",
+    "make_spatial_train_step",
     "make_train_step",
+    "Bands",
+    "SpatialModel",
+    "make_spatial_forward",
+    "replicate_variables",
+    "shard_image",
     "ShardedGrid",
     "gather_grid",
     "init_sharded_grid",

@@ -5,8 +5,9 @@ fused step of forward, loss, backward, update and metrics
 (``make_train_step``), the evaluation step (``make_eval_step``), K steps
 over a stacked batch (``make_multi_train_step``) and the data-parallel
 step with per-device BatchNorm statistics
-(``make_per_device_bn_train_step``).  Spatial sharding
-(``jit_spatial_*``) is not ported (ROADMAP queue 1 item 5).
+(``make_per_device_bn_train_step``), and the spatially sharded steps
+(``make_spatial_train_step``, ``make_spatial_eval_step``: image rows banded
+over a mesh axis, ``parallel/spatial_infer.py``).
 
 Data parallelism is one rank per card over ``torch.distributed``
 (``parallel/distributed.py``), each rank stepping on its slice of the global
@@ -22,7 +23,12 @@ is nothing to jit; each maps to a ``group=`` form here:
   * ``jit_eval_step(make_eval_step(...), mesh)`` -> ``make_eval_step(...,
     group=g)``;
   * ``make_per_device_bn_train_step(num_classes, mesh)`` ->
-    ``make_per_device_bn_train_step(num_classes, g)``.
+    ``make_per_device_bn_train_step(num_classes, g)``;
+  * ``jit_spatial_train_step(make_train_step(...), mesh, data_axis,
+    spatial_axis, steps_axis)`` -> ``make_spatial_train_step(num_classes,
+    mesh, data_axis, spatial_axis, steps=K, ...)``, and
+    ``jit_spatial_eval_step`` -> ``make_spatial_eval_step``: one process
+    over the mesh's devices, not a process group.
 
 After a local backward, one all-reduce sums the gradients with the loss
 and the confusion (per-device steps: the running statistics too), and every
@@ -59,6 +65,8 @@ from ..models.layers import checkpointed, global_batch_statistics
 from ..models.loss import cross_entropy_loss, cross_entropy_sum_count
 from ..models.metrics import confusion_matrix_update
 from .distributed import all_reduce_
+from .mesh import Mesh
+from .spatial_infer import Bands, SpatialModel
 
 Batch = Dict[str, torch.Tensor]
 Step = Callable[["TrainState", Batch], Dict[str, torch.Tensor]]
@@ -316,5 +324,152 @@ def make_eval_step(num_classes: int, ignore_index: int = 255,
         total, count = cross_entropy_sum_count(logits, label, ignore_index=ignore_index)
         all_reduce_([total, count, confusion], group)
         return {"loss": total / count.clamp_min(1e-12), "confusion": confusion}
+
+    return eval_step
+
+
+def _spatial_engine(cache: dict, model: nn.Module, mesh: Mesh, data_axis: Optional[str],
+                    spatial_axis: str) -> SpatialModel:
+    """The banded forward of ``model`` over ``mesh``, built once a model."""
+    key = id(model)
+    if key not in cache:
+        cache.clear()
+        cache[key] = SpatialModel(model, mesh, spatial_axis=spatial_axis, data_axis=data_axis)
+    return cache[key]
+
+
+def _spatial_logits(engine: SpatialModel, image: torch.Tensor, remat: bool,
+                    dtype: torch.dtype) -> Bands:
+    """The upsampled logits of an NHWC batch as bands; ``remat`` recomputes
+    the whole banded forward, halo fetches included, in the backward."""
+    x = engine.split(_nchw(image))
+    model = engine.model
+    with torch.autocast(image.device.type, dtype=dtype, enabled=dtype != torch.float32):
+        return engine._block(model, model, lambda b: engine(b, upsample_pred=True), x, remat)
+
+
+def spatial_loss(logits: Bands, labels: Bands, num_classes: int, ignore_index: int,
+                  home: torch.device):
+    """The mean cross entropy over the counted pixels of every band and the
+    confusion: per-band sums added in mesh order on ``home``."""
+    total = count = confusion = None
+    for lg, lb in zip(logits.shards, labels.shards):
+        t, c = cross_entropy_sum_count(lg, lb, ignore_index=ignore_index)
+        cm = confusion_matrix_update(lg.detach(), lb, num_classes).to(home)
+        t, c = t.to(home), c.to(home)
+        total = t if total is None else total + t
+        count = c if count is None else count + c
+        confusion = cm if confusion is None else confusion + cm
+    return total / count.clamp_min(1e-12), confusion
+
+
+def _check_micro(micro: int, engine: SpatialModel) -> None:
+    if micro % len(engine.groups):
+        raise ValueError(f"a (micro-)batch of {micro} does not split over the data axis of "
+                         f"{len(engine.groups)} shards")
+
+
+def make_spatial_train_step(
+    num_classes: int,
+    mesh: Mesh,
+    data_axis: Optional[str] = "data",
+    spatial_axis: str = "spatial",
+    steps: int = 1,
+    ignore_index: int = 255,
+    max_grad_norm: float = 0.0,
+    freeze_bn_stats: bool = False,
+    remat: bool = False,
+    accum_steps: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Step:
+    """The train step with image rows banded over ``mesh[spatial_axis]``
+    and the batch over ``mesh[data_axis]`` (None: a pure-spatial mesh), the
+    JAX package's ``jit_spatial_train_step(make_train_step(...), mesh)``.
+
+    ``batch`` is the whole global batch (``image`` (B, H, W, 3) float NHWC,
+    ``label`` (B, H, W)) on any device; the step splits each micro-batch
+    over the mesh (``spatial_infer.Bands``).  The forward is banded
+    (explicit halos; autograd carries them back), BatchNorm takes its
+    statistics over every band and data shard in a fixed order, the loss is
+    the mean over the counted pixels of every band (per-band sums added in
+    mesh order), and the confusion the bands' counts added.  Parameters and
+    optimizer state stay on the model's device; copies on the mesh's other
+    devices are refreshed before the forward, and their gradients added
+    onto the model's in mesh order.  The other arguments are
+    :func:`make_train_step`'s; ``steps`` > 1 takes a ``(steps, B, ...)``
+    stacked batch (JAX's ``steps_axis=True``).
+    """
+    engines: dict = {}
+
+    def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis)
+        model.train()
+        engine.sync()
+        saved = [b.clone() for b in _bn_buffers(model)] if freeze_bn_stats else None
+        engine.zero_grad()
+        image, label = batch["image"], batch["label"]
+        b = image.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch of {b} does not split into {accum_steps} micro-batches")
+        micro = b // accum_steps
+        _check_micro(micro, engine)
+        loss_sum = confusion = None
+        for i in range(accum_steps):
+            logits = _spatial_logits(engine, image[i * micro : (i + 1) * micro], remat,
+                                     compute_dtype)
+            labels = Bands.split(label[i * micro : (i + 1) * micro], engine.groups, 1)
+            loss, cm = spatial_loss(logits, labels, num_classes, ignore_index, engine.home)
+            loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            confusion = cm if confusion is None else confusion + cm
+        engine.reduce_grads()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if accum_steps > 1:
+            torch._foreach_div_(grads, float(accum_steps))
+        _clip_(grads, max_grad_norm)
+        _update(state)
+        if saved is not None:
+            with torch.no_grad():
+                for buf, old in zip(_bn_buffers(model), saved):
+                    buf.copy_(old)
+        return {"loss": loss_sum / accum_steps, "confusion": confusion}
+
+    return _stacked(train_step, steps) if steps > 1 else train_step
+
+
+def make_spatial_eval_step(num_classes: int, mesh: Mesh, data_axis: Optional[str] = "data",
+                           spatial_axis: str = "spatial", ignore_index: int = 255,
+                           compute_dtype: torch.dtype = torch.float32):
+    """Validation step with image rows banded over ``mesh[spatial_axis]``
+    (JAX ``jit_spatial_eval_step``): the banded forward with the running
+    statistics, the loss and the confusion as in
+    :func:`make_spatial_train_step`, no updates.  A batch that does not
+    split over the data axis is padded with copies of its first image
+    labelled ``ignore_index`` (the JAX trainer's padding), which change
+    neither the loss nor the confusion."""
+    engines: dict = {}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis)
+        pad = -batch["image"].shape[0] % len(engine.groups)
+        if pad:
+            label = batch["label"]
+            batch = {"image": torch.cat([batch["image"], batch["image"][:1].expand(
+                         pad, *batch["image"].shape[1:])]),
+                     "label": torch.cat([label, label.new_full((pad, *label.shape[1:]),
+                                                               ignore_index)])}
+        was_training = model.training
+        model.eval()
+        try:
+            engine.sync()
+            logits = _spatial_logits(engine, batch["image"], False, compute_dtype)
+        finally:
+            model.train(was_training)
+        labels = Bands.split(batch["label"], engine.groups, 1)
+        loss, confusion = spatial_loss(logits, labels, num_classes, ignore_index, engine.home)
+        return {"loss": loss, "confusion": confusion}
 
     return eval_step

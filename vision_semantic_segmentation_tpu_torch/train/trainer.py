@@ -28,8 +28,19 @@ every rank at the same step boundary.
 ``TRAIN.STEPS_PER_DISPATCH`` K is accepted and runs K single steps, which
 the JAX package's fused K-step dispatch equals bit for bit.
 ``TRAIN.COMPUTE_DTYPE`` bfloat16 runs the forward under ``torch.autocast``
-with f32 parameters.  ``TRAIN.SPATIAL_SHARDS`` > 1 is refused: ROADMAP
-queue 1 item 5.
+with f32 parameters.
+
+``TRAIN.SPATIAL_SHARDS`` S > 1 bands each image's rows over S devices
+(``make_spatial_train_step``, ``parallel/spatial_infer.py``) on a
+``(data, spatial)`` mesh of ``devices`` (default every local device of
+``device``'s type; a device may repeat): S must divide their count, and the
+data axis shrinks to a divisor of the batch, as in the JAX trainer.  Its
+refusals are the JAX trainer's: per-device BatchNorm statistics
+(``MODEL.SYNC_BN`` False over more than one data shard, unfrozen) and
+``TRAIN.DEVICE_AUGMENT`` raise ``NotImplementedError``, and a crop height
+that does not divide by S or lies below ``OUTPUT_STRIDE`` x S raises
+``ValueError``.  Bands across the ranks of ``distributed=True`` are not
+ported (ROADMAP).
 
 ``tensorboard=True`` (with an ``output_dir``) writes the epoch's training
 meters and the validation loss and mIoU as TensorBoard scalars through
@@ -54,10 +65,13 @@ import torch.distributed as dist
 from ..device import DeviceLike, resolve_device
 from ..models.build import build_train_model
 from ..parallel.distributed import broadcast_module_, ensure_distributed, rank_seed
+from ..parallel.mesh import create_mesh, local_devices
 from ..parallel.train_step import (
     TrainState,
     make_eval_step,
     make_per_device_bn_train_step,
+    make_spatial_eval_step,
+    make_spatial_train_step,
     make_train_step,
 )
 from ..runtime.replay import StagedWindow
@@ -72,7 +86,13 @@ from .prefetch import stage_batch
 from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_SPATIAL = "spatially sharded training is not ported (ROADMAP queue 1 item 5, parallel/)"
+_SPATIAL_RANKS = (
+    "TRAIN.SPATIAL_SHARDS > 1 with distributed=True (row bands across the ranks of a "
+    "process group) is not ported: see ROADMAP; train spatially sharded in one process")
+
+
+def _largest_divisor(n: int, at_most: int) -> int:
+    return next(d for d in range(min(at_most, n), 0, -1) if n % d == 0)
 
 
 class Trainer:
@@ -80,7 +100,8 @@ class Trainer:
     rank of a data-parallel group."""
 
     def __init__(self, cfg, output_dir: str = "", logger=None, device: DeviceLike = "cuda",
-                 tensorboard=False, remat: bool = False, distributed: bool = False):
+                 tensorboard=False, remat: bool = False, distributed: bool = False,
+                 devices=None):
         """Args:
             tensorboard: True for a tensorboardX writer in ``output_dir``, or
                 a writer (any object with ``add_scalar``).
@@ -89,9 +110,13 @@ class Trainer:
             distributed: join ``torchrun``'s process group (or the one this
                 process opened) and train as one of its ranks; raises
                 without one.  ``device`` ``cuda`` is then ``cuda:LOCAL_RANK``.
+            devices: the mesh of ``TRAIN.SPATIAL_SHARDS`` > 1 (a device may
+                repeat); default every local device of ``device``'s type.
+                The model and optimizer stay on ``device``.
         """
-        if int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1)) > 1:
-            raise NotImplementedError(f"TRAIN.SPATIAL_SHARDS > 1: {_SPATIAL}")
+        spatial = max(1, int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1)))
+        if spatial > 1 and distributed:
+            raise NotImplementedError(_SPATIAL_RANKS)
         self.cfg = cfg
         self.output_dir = output_dir
         self.logger = logger
@@ -102,6 +127,20 @@ class Trainer:
         if cfg.TRAIN.BATCH_SIZE % ranks:
             raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} does not split over "
                              f"{ranks} ranks: launch a number of ranks that divides it")
+        # TRAIN.SPATIAL_SHARDS: a (data, spatial) mesh, image rows banded over
+        # the spatial axis, the batch over what devices remain
+        self.mesh = None
+        self._spatial, self._data_size, self._min_spatial_h = 1, ranks, 0
+        if spatial > 1:
+            devs = list(devices) if devices is not None else local_devices(self.device.type)
+            if len(devs) % spatial:
+                raise ValueError(f"TRAIN.SPATIAL_SHARDS={spatial} does not divide the device "
+                                 f"count {len(devs)}")
+            n_use = _largest_divisor(cfg.TRAIN.BATCH_SIZE, len(devs) // spatial)
+            self.mesh = create_mesh((n_use, spatial), ("data", "spatial"),
+                                    devices=devs[:n_use * spatial])
+            self._spatial, self._data_size = spatial, n_use
+            self._min_spatial_h = int(getattr(cfg.MODEL, "OUTPUT_STRIDE", 1)) * spatial
 
         seed = set_random_seed(cfg.RNG_SEED)
         seed = 0 if seed is None else seed  # RNG_SEED < 0: unseeded (ref torch_util.py:7-16)
@@ -141,7 +180,22 @@ class Trainer:
         # asked for (SYNC_BN False), on more than one rank and unfrozen
         group = self.world.group if distributed else None
         per_device = ranks > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM
-        if per_device:
+        if self._spatial > 1:
+            if self._data_size > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM:
+                raise NotImplementedError(
+                    "TRAIN.SPATIAL_SHARDS > 1 requires the SyncBN train step (MODEL.SYNC_BN="
+                    "True, a single-data-device mesh, or TRAIN.FREEZE_BATCHNORM=True); "
+                    "per-device BN statistics are undefined for spatially-split images")
+            if self._device_augment is not None:
+                raise NotImplementedError(
+                    "TRAIN.DEVICE_AUGMENT composes with data parallelism only; with "
+                    "TRAIN.SPATIAL_SHARDS > 1 feed host-side augmented fixed-shape crops "
+                    "(TRAIN.AUGMENTATION)")
+            self._train_step = make_spatial_train_step(
+                num_classes, self.mesh, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
+                freeze_bn_stats=bool(cfg.TRAIN.FREEZE_BATCHNORM), remat=remat,
+                accum_steps=accum, compute_dtype=self.compute_dtype)
+        elif per_device:
             self._train_step = make_per_device_bn_train_step(
                 num_classes, group, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
                 augment=self._device_augment, compute_dtype=self.compute_dtype, remat=remat,
@@ -152,8 +206,13 @@ class Trainer:
                 freeze_bn_stats=bool(cfg.TRAIN.FREEZE_BATCHNORM), remat=remat,
                 accum_steps=accum, augment=self._device_augment,
                 compute_dtype=self.compute_dtype, group=group)
-        self._eval_step = make_eval_step(num_classes, compute_dtype=self.compute_dtype,
-                                         group=group)
+        self._eval_step = (
+            make_spatial_eval_step(num_classes, self.mesh, compute_dtype=self.compute_dtype)
+            if self._spatial > 1 else
+            make_eval_step(num_classes, compute_dtype=self.compute_dtype, group=group))
+        if self._spatial > 1:
+            self._log(f"spatial: {self._data_size} data x {self._spatial} spatial shards over "
+                      f"{', '.join(str(d) for d in self.mesh.devices.flat)}")
         if distributed:
             self._log(f"distributed: {ranks} ranks over {dist.get_backend()}, rank 0 on "
                       f"{self.device}, {'per-device' if per_device else 'global-batch'} "
@@ -265,7 +324,18 @@ class Trainer:
         if not isinstance(batch, StagedWindow):
             batch = stage_batch(self._host_batch(batch, raw_images), self.device)
         batch.wait()
+        if self._spatial > 1:
+            self._check_spatial_h(batch["image"].shape[1])
         return {"image": batch["image"], "label": batch["label"].long()}
+
+    def _check_spatial_h(self, h: int) -> None:
+        """The JAX trainer's guard: a crop height that divides by the shard
+        count and keeps a row a shard at the output stride."""
+        if h % self._spatial or h < self._min_spatial_h:
+            raise ValueError(
+                f"TRAIN.SPATIAL_SHARDS={self._spatial} needs the crop height to divide by the "
+                f"shard count and be >= OUTPUT_STRIDE x shards = {self._min_spatial_h} "
+                f"(got H={h})")
 
     @staticmethod
     def _host_batch(batch, raw_images: bool) -> Dict[str, np.ndarray]:
