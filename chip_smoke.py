@@ -137,9 +137,14 @@ Phases (any failure raises, so the exit code is non-zero):
    (an f64 conv of the int8 values, then the same f32 epilogue) at each
    3x3 site shape of the int8 ResNeXt50 at 1440x1920 (int8 out with ReLU,
    then bf16 out) and at a BasicBlock's two (resnet18 layer2_0: int8 out,
-   bf16 and f32 out), max |err| 0, each timed against the bf16 cuDNN conv
-   of the same site and its bound (bytes / 3.35 TB/s or int8 operations /
-   1,979 TOPS); the kernels line gets a frame's 16 sites summed.  (b)
+   bf16 and f32 out), then at the inner 4-band inputs of phase 13(c) at
+   layer1 and layer4 and at a shape no output tile divides (int8, bf16 and
+   f32 out), max |err| 0, each timed against the bf16 cuDNN conv of the
+   same site and its bound (bytes / 3.35 TB/s or int8 operations / 1,979
+   TOPS), both convs in the same two ways (CUDA events: 20 launched one by
+   one, and 20 replayed from a CUDA graph, the device time without the
+   host's launch cost); the kernels line gets a frame's 16 sites summed,
+   launched one by one.  (b)
    ``main(["quantize", ...])`` over phase 5's bag with 8 calibration
    frames: 52 sites in the JAX package's format (tile-diagonal grouped
    kernels), no launch (calibration runs the float backbone alone).  (c) The
@@ -2073,6 +2078,15 @@ Q1_BASIC = [
     ((180, 240, 128), 128, 1, 1, [(torch.bfloat16, False), (torch.float32, True)]),
 ]
 Q1_KINDS = [(torch.int8, True), (torch.bfloat16, False)]  # a ResNeXt site, then a float out
+# shapes off the frame's sites, each in every output kind: the inner 4-band
+# halo-extended inputs of phase 13(c) at layer1 and layer4, and a shape
+# that Q1's output tile divides in neither axis; (H, W, C), stride, dilation
+Q1_EDGES = [
+    ((92, 480, 128), 1, 1),
+    ((53, 240, 1024), 1, 4),
+    ((45, 61, 512), 1, 2),
+]
+Q1_ALL_KINDS = [(torch.int8, True), (torch.bfloat16, False), (torch.float32, True)]
 
 
 def q1_work(x, w, stride: int, dilation: int, out_itemsize: int):
@@ -2117,41 +2131,58 @@ def q1_site(gen, hwc, cout: int, stride: int, dilation: int, groups: int, kinds)
     dtype, relu = kinds[0]
     scale, shift = scales[torch.int8 if dtype == torch.int8 else "float"]
     args = (x, wt, scale, shift, stride, dilation, dilation, groups, dtype, relu)
-    ms = cuda_ms(lambda: int8_conv.int8_conv3x3(*args), 20)
+
+    def q1():
+        return int8_conv.int8_conv3x3(*args)
+
+    ms, graph = cuda_ms(q1, 20), graph_ms(q1, 20)
     plain_ms = cuda_ms(lambda: int8_conv.int8_conv3x3_plain(*args), 1)
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
     wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, dilation, dilation, groups), 20)
+
+    def cudnn():
+        return F.conv2d(xb, wb, None, stride, dilation, dilation, groups)
+
+    cudnn_ms, cudnn_graph = cuda_ms(cudnn, 20), graph_ms(cudnn, 20)
     nbytes, ops = q1_work(x, wt, stride, dilation, torch.empty((), dtype=dtype).element_size())
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
     print(f"  Q1 {tuple(x.shape)} -> {cout}, groups {groups}, stride {stride}, dilation "
           f"{dilation}, {[(str(d).split('.')[-1], r) for d, r in kinds]}: max |err| {errs} vs "
-          f"plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bf16 cuDNN {cudnn_ms:.4f} ms), bound "
-          f"{bound_ms * 1e3:.1f} us, {bound_ms / ms:.1%} of the bound", flush=True)
-    return dict(err=max(errs), ms=ms, plain_ms=plain_ms, cudnn_ms=cudnn_ms, bytes=nbytes, ops=ops)
+          f"plain; launched one by one {ms:.4f} ms (bf16 cuDNN {cudnn_ms:.4f} ms), in a CUDA "
+          f"graph {graph:.4f} ms (bf16 cuDNN {cudnn_graph:.4f} ms), plain {plain_ms:.4f} ms; "
+          f"bound {bound_ms * 1e3:.1f} us, {bound_ms / ms:.1%} of it launched one by one, "
+          f"{bound_ms / graph:.1%} in a graph", flush=True)
+    return dict(err=max(errs), ms=ms, graph_ms=graph, plain_ms=plain_ms, cudnn_ms=cudnn_ms,
+                cudnn_graph_ms=cudnn_graph, bytes=nbytes, ops=ops)
 
 
 def check_int8_conv(smi: str) -> dict:
     """(a) Q1 against its plain version at each 3x3 site shape of the int8
-    ResNeXt50 at 1440x1920 and at a BasicBlock's two; the kernels line gets
-    a frame's 16 sites summed."""
+    ResNeXt50 at 1440x1920, at a BasicBlock's two and at ``Q1_EDGES``; the
+    kernels line gets a frame's 16 sites summed, launched one by one."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    total = dict(err=0.0, ms=0.0, plain_ms=0.0, cudnn_ms=0.0, bytes=0, ops=0)
+    times = ("ms", "graph_ms", "plain_ms", "cudnn_ms", "cudnn_graph_ms")
+    total = dict(err=0.0, bytes=0, ops=0, **dict.fromkeys(times, 0.0))
     print(f"phase 9(a) Q1 on {smi}:", flush=True)
     for hwc, stride, d, count in Q1_SITES:
         r = q1_site(gen, hwc, hwc[2], stride, d, 32, Q1_KINDS)
         total["err"] = max(total["err"], r["err"])
-        for k in ("ms", "plain_ms", "cudnn_ms", "bytes", "ops"):
+        for k in (*times, "bytes", "ops"):
             total[k] += count * r[k]
     for hwc, cout, stride, d, kinds in Q1_BASIC:
         total["err"] = max(total["err"], q1_site(gen, hwc, cout, stride, d, 1, kinds)["err"])
+    for hwc, stride, d in Q1_EDGES:
+        total["err"] = max(total["err"],
+                           q1_site(gen, hwc, hwc[2], stride, d, 32, Q1_ALL_KINDS)["err"])
     b_bytes, b_ops = total["bytes"] / HBM_BYTES_PER_S * 1e3, total["ops"] / INT8_OPS_PER_S * 1e3
     b_ms, b_by = (b_bytes, "bytes") if b_bytes >= b_ops else (b_ops, "operations")
     print(f"kernel int8_conv3x3 (a frame's 16 sites): max_abs_err {total['err']} kernel "
-          f"{total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms, bf16 cuDNN grouped convs "
-          f"{total['cudnn_ms']:.4f} ms, bound {b_ms * 1e3:.1f} us ({b_by}; bytes "
-          f"{b_bytes * 1e3:.1f} us, int8 operations {b_ops * 1e3:.1f} us), {b_ms / total['ms']:.1%} "
-          f"of the bound", flush=True)
+          f"{total['ms']:.4f} ms launched one by one (bf16 cuDNN grouped convs "
+          f"{total['cudnn_ms']:.4f} ms), {total['graph_ms']:.4f} ms in CUDA graphs (bf16 cuDNN "
+          f"{total['cudnn_graph_ms']:.4f} ms), plain {total['plain_ms']:.4f} ms, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}; bytes {b_bytes * 1e3:.1f} us, int8 operations "
+          f"{b_ops * 1e3:.1f} us), {b_ms / total['ms']:.1%} of the bound launched one by one, "
+          f"{b_ms / total['graph_ms']:.1%} in CUDA graphs", flush=True)
     if total["err"] != 0:
         raise AssertionError(f"Q1 differs from its plain version by {total['err']}")
     return {
@@ -3599,8 +3630,8 @@ def sweep(smi: str) -> None:
     """Launch choices at the main path's shapes, each checked against the
     default's output and timed with CUDA events on one set of inputs: K4's
     channel group and threads per block (bf16, d 12/24/36), the same two
-    for K3, P1/"f32col" and "slab" per dilation, K1's strip rows
-    (5x2000x2000)."""
+    for K3, P1/"f32col" and "slab" per dilation, Q1's tile and channel
+    block per site shape, K1's strip rows (5x2000x2000)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     h, w, c = ASPP_SHAPE
     x = torch.randn((1, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -3639,6 +3670,7 @@ def sweep(smi: str) -> None:
                     times.append(f"{plan.threads} threads {ms:.4f} ms")
                 print(f"  {name} d={d} group {plan.group} smem {plan.smem}: " + ", ".join(times)
                       + " (each equal to the default's output)", flush=True)
+    sweep_q1(gen)
     grid = render_grid(gen, 5, 2000, 2000)
     want = render.render_bev_map_fused(grid, LABEL_COLORS)
     out = torch.empty((2000, 2000), dtype=torch.int32, device="cuda")
@@ -3651,6 +3683,40 @@ def sweep(smi: str) -> None:
         same = torch.equal(out, want)
         ms = cuda_ms(launch, 50)
         print(f"  K1 strip {strip}: {ms:.4f} ms (C entry point) equal {same}", flush=True)
+
+
+def sweep_q1(gen) -> None:
+    """Q1's output tile, channel block and tiles a block at each site shape
+    of ``Q1_SITES`` (int8 out with ReLU), each launch checked against the
+    default plan's output and timed in a CUDA graph; the launch choices in
+    ``ops/kernels/int8_conv.py`` come from it."""
+    from vision_semantic_segmentation_tpu_torch.ops.kernels import int8_conv
+
+    for (h, w, c), stride, d, _ in Q1_SITES:
+        x = torch.randint(0, 128, (1, h, w, c), generator=gen, device="cuda", dtype=torch.int8)
+        wt = torch.randint(-127, 128, (c, 3, 3, c // 32), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        scale = torch.rand(c, generator=gen, device="cuda") * 1e-3
+        shift = torch.rand(c, generator=gen, device="cuda") * 40 - 20
+        args = (x, wt, scale, shift, stride, d, d, 32, torch.int8, True)
+        want = int8_conv.int8_conv3x3(*args)
+        default = graph_ms(lambda: int8_conv.int8_conv3x3(*args), 20)
+        times = []
+        for tile in ((8, 16), (4, 32), (16, 16), (8, 32), (4, 64)):
+            for block_cols in (32, 64, 128):
+                for tpb in (1, 2, 4, 8):
+                    plan = int8_conv.q1_plan(1, h, w, c, c, 32, stride, d, d, 1, tile=tile,
+                                             block_cols=block_cols, tiles_per_block=tpb)
+                    if not torch.equal(int8_conv.launch_q1(*args, plan), want):
+                        raise AssertionError(f"Q1 {(h, w, c)} {plan} differs from the default")
+                    ms = graph_ms(lambda: int8_conv.launch_q1(*args, plan), 20)
+                    times.append((ms, f"{plan.tile_h}x{plan.tile_w}/{plan.gb * plan.cols}/"
+                                      f"{tpb} {plan.smem // 1024}K"))
+        times.sort()
+        print(f"  Q1 {(h, w, c)} stride {stride} dilation {d}: default {default:.4f} ms; "
+              f"fastest (tile/channels/tiles a block, shared KB: ms; each equal to the "
+              f"default's output): " + ", ".join(f"{n} {ms:.4f}" for ms, n in times[:12])
+              + f"; slowest {times[-1][1]} {times[-1][0]:.4f}", flush=True)
 
 
 def clock(t0: float, what: str) -> None:
