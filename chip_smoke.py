@@ -214,7 +214,7 @@ Phases (any failure raises, so the exit code is non-zero):
 
 12. Data-parallel training (``parallel/distributed.py``, the data-parallel
    steps, ``train --distributed``; outputs under the git-ignored
-   ``build/chip_smoke_dp/``; last), on phase 7's rendered dataset.  The
+   ``build/chip_smoke_dp/``), on phase 7's rendered dataset.  The
    phase starts two ranks on cuda:0 (``chip_smoke.py
    --rank-worker spec.json``, each with a time limit; a failing rank fails
    the phase) and opens their gloo group itself: NCCL refuses two ranks on
@@ -261,6 +261,30 @@ Phases (any failure raises, so the exit code is non-zero):
    (the loss falls; steps/s, images/s, peak memory); and ``main(["train",
    ..., "TRAIN.SPATIAL_SHARDS", "3"])`` on the one card raising the
    device-count ``ValueError``.
+
+14. Bands across ranks (``TRAIN.SPATIAL_SHARDS`` under ``train
+   --distributed``: ``World.spatial_groups``, the halo exchange and the
+   banded reductions over ``torch.distributed``; outputs under the
+   git-ignored ``build/chip_smoke_spatial_ranks/``; after phase 13, whose
+   13(e) references it reads).  Phase 12's ``--rank-worker`` launcher starts
+   the ranks on cuda:0 over gloo (NCCL refuses two ranks on one card): the
+   phase measures the exchange machinery, not multi-card speed, and the
+   NCCL point-to-point path waits for a four-chip run.  Rank r holds band
+   ``r % 3`` of data group ``r // 3``.  (a) One step of 13(e)'s
+   configuration on 3 ranks (data 1 x spatial 3, ``MODEL.SYNC_BN True``)
+   against 13(e)'s one-process banded step (12(a)'s tolerances) and the
+   unsharded step (13(e)'s envelope); K4 16 and K3 48 a rank; the
+   collective calls a step, equal on every rank; the halo bytes a rank
+   sends; the ms of the exchanges and of the all-reduces (the same step
+   again, each call timed with the card synchronised around it); peak
+   memory.  (b) The eval-mode gradient over 4 crops in f64 on the plain
+   versions against 13(e)'s one-process one.  (c) ``main(["train",
+   "--distributed", ..., "TRAIN.SPATIAL_SHARDS", "3"])`` on 6 ranks (data 2
+   x spatial 3) for 4 steps: the loss falls, steps/s, images/s, each
+   rank's wait for data, launches, checkpoints by rank 0 alone.  (d) The
+   same command with ``TRAIN.SPATIAL_SHARDS 4`` raises the
+   does-not-divide-the-world ``ValueError`` on every rank, each group within
+   ``RANKS_TIMEOUT``.
 
 A ``clock:`` line after each phase gives the seconds since the start.
 The last two lines are the kernel summary JSON and the device JSON; the
@@ -323,7 +347,10 @@ from vision_semantic_segmentation_tpu_torch.parallel import (
     spatial_infer,
 )
 from vision_semantic_segmentation_tpu_torch.parallel.train_step import spatial_loss
-from vision_semantic_segmentation_tpu_torch.parallel.distributed import all_reduce_
+from vision_semantic_segmentation_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    ensure_distributed,
+)
 from vision_semantic_segmentation_tpu_torch.train.build import build_dataloader
 from vision_semantic_segmentation_tpu_torch.train.checkpoint import Checkpoint
 from vision_semantic_segmentation_tpu_torch.train.optim import (
@@ -3018,21 +3045,18 @@ def dp_rank_train(spec: dict, rank: int) -> dict:
     return out
 
 
-DP_TASKS = {"a": dp_rank_steps, "b": dp_rank_train}
-
-
 def rank_worker(spec_path: str) -> None:
-    """One rank of phase 12: join the gloo group the phase opened on the
-    card and run the task; the result as JSON beside the spec."""
+    """One rank of phase 12 or 14: join the gloo group the phase opened on
+    the card and run the task; the result as JSON beside the spec."""
     spec = json.loads(Path(spec_path).read_text())
     torch.cuda.set_device(0)
     resolve_device("cuda:0")  # TF32 off
     rank = spec["rank"]
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
-                            world_size=DP_RANKS, rank=rank,
-                            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+                            world_size=spec["world"], rank=rank,
+                            timeout=datetime.timedelta(seconds=spec["timeout"]))
     try:
-        result = DP_TASKS[spec["task"]](spec, rank)
+        result = RANK_TASKS[spec["task"]](spec, rank)
     finally:
         dist.destroy_process_group()
     Path(spec["out"]).write_text(json.dumps(result))
@@ -3044,27 +3068,30 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(task: str, **spec) -> list:
-    """Start the phase's ranks (two processes on cuda:0 over gloo), wait for
-    both within ``DP_TIMEOUT``; any rank failing fails the phase."""
+def run_group(task: str, where: Path = DP, world: int = DP_RANKS, timeout: int = DP_TIMEOUT,
+              **spec) -> list:
+    """Start ``world`` ranks of ``task`` (processes on cuda:0 over gloo),
+    wait for all within ``timeout`` seconds; any rank failing fails the
+    phase."""
     port = free_port()
     procs = []
-    for rank in range(DP_RANKS):
-        path = DP / f"{task}_rank{rank}.spec.json"
-        path.write_text(json.dumps({"task": task, "rank": rank, "port": port,
-                                    "out": str(DP / f"{task}_rank{rank}.json"), **spec}))
-        log = open(DP / f"{task}_rank{rank}.log", "w")
+    for rank in range(world):
+        path = where / f"{task}_rank{rank}.spec.json"
+        path.write_text(json.dumps({"task": task, "rank": rank, "port": port, "world": world,
+                                    "timeout": timeout,
+                                    "out": str(where / f"{task}_rank{rank}.json"), **spec}))
+        log = open(where / f"{task}_rank{rank}.log", "w")
         procs.append((subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
                                         "--rank-worker", str(path)], stdout=log,
                                        stderr=subprocess.STDOUT, start_new_session=True), log))
-    wait_all(f"12({task})", procs)
-    return [json.loads((DP / f"{task}_rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    wait_all(task, procs, timeout)
+    return [json.loads((where / f"{task}_rank{r}.json").read_text()) for r in range(world)]
 
 
-def wait_all(what: str, procs: list) -> None:
-    """Wait for every process (and its session) until ``DP_TIMEOUT``; kill
+def wait_all(what: str, procs: list, timeout: int = DP_TIMEOUT) -> None:
+    """Wait for every process (and its session) until ``timeout``; kill
     what is left; raise with the log's end if any failed."""
-    deadline = time.monotonic() + DP_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3079,7 +3106,7 @@ def wait_all(what: str, procs: list) -> None:
     bad = [(i, p.returncode) for i, (p, _) in enumerate(procs) if p.returncode != 0]
     if bad:
         tails = {i: Path(log.name).read_text()[-4000:] for i, (_, log) in enumerate(procs)}
-        raise RuntimeError(f"{what}: processes {bad} failed or timed out after {DP_TIMEOUT} s:"
+        raise RuntimeError(f"{what}: processes {bad} failed or timed out after {timeout} s:"
                            f" {tails}")
 
 
@@ -3471,33 +3498,22 @@ def spatial_train_step(smi: str) -> None:
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     have = dp_host_state(state)
-    loss_d = abs(float(got["loss"]) - float(ref["loss"]))
-    cm0, cm1 = ref["confusion"].cpu(), got["confusion"].cpu()
-    cell = float((cm1 - cm0).abs().max()) / float(cm0.sum())
-    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
-    params = [k for k, _ in state.model.named_parameters()]
-    stat_d = max(float((have[k] - want[k]).abs().max()) for k in stats)
-    param_d = max(float((have[k] - want[k]).abs().max())
-                  / max(1.0, float(want[k].abs().max())) for k in params)
+    envelope = spatial_envelope(have, want, float(got["loss"]), float(ref["loss"]),
+                                got["confusion"].cpu(), ref["confusion"].cpu())
     print(f"13(e) one spatial train step, ResNeXt50-32x4d OS16 f32 (TF32 off), batch 16 of "
           f"513x513, (data 1, spatial {SPATIAL_TRAIN_SHARDS}) logical shards of cuda:0, against "
-          f"one process on {smi}: loss {float(got['loss'])!r} against {float(ref['loss'])!r} "
-          f"(|diff| {loss_d:.3e}, tolerance {SPATIAL_TRAIN_TOL['loss']}); confusion totals "
-          f"{float(cm1.sum()):.0f} / {float(cm0.sum()):.0f}, largest cell |diff| {cell:.3e} of "
-          f"the pixels (tolerance {SPATIAL_TRAIN_TOL['cell']}); running statistics max |diff| "
-          f"{stat_d:.3e} (tolerance {SPATIAL_TRAIN_TOL['stats']}); parameters max |diff| "
-          f"{param_d:.3e} of max(1, their largest) (tolerance {SPATIAL_TRAIN_TOL['param']}); "
-          f"step {step_s * 1e3:.1f} ms host clock, peak memory {peak:.2f} GiB; launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+          f"one process on {smi}: {envelope}; step {step_s * 1e3:.1f} ms host clock, peak "
+          f"memory {peak:.2f} GiB; launches {launches_named(launches)}", flush=True)
     want_launches = {k.name: 0 for k in K.kernels()}
     want_launches.update({"aspp_depthwise3x3_multi": TRAIN_BATCH * SPATIAL_TRAIN_SHARDS,
                           "depthwise3x3_dilated": 3 * TRAIN_BATCH * SPATIAL_TRAIN_SHARDS})
     if launches != want_launches:
         raise AssertionError(f"13(e): launches {launches} != {want_launches}")
-    if (loss_d > SPATIAL_TRAIN_TOL["loss"] or float(cm1.sum()) != float(cm0.sum())
-            or cell > SPATIAL_TRAIN_TOL["cell"] or stat_d > SPATIAL_TRAIN_TOL["stats"]
-            or param_d > SPATIAL_TRAIN_TOL["param"]):
-        raise AssertionError("13(e): spatial step outside the tolerances")
+    # phase 14 holds its ranks' step to both of these
+    torch.save({"unsharded": {"loss": float(ref["loss"]), "confusion": ref["confusion"].cpu(),
+                              "state": want},
+                "banded": {"loss": float(got["loss"]), "confusion": got["confusion"].cpu(),
+                           "state": have}}, SPATIAL / "e_step.pt")
     del state, got, ref
     torch.cuda.empty_cache()
 
@@ -3526,8 +3542,39 @@ def spatial_train_step(smi: str) -> None:
           f"{len(rel[torch.float32])} f32 leaves above {SPATIAL_GRAD_RTOL}", flush=True)
     if worst64 > SPATIAL_GRAD_RTOL:
         raise AssertionError("13(e): eval-mode gradients differ")
+    torch.save({k: g.cpu() for k, g in grads[torch.float64, False].items()},
+               SPATIAL / "e_grads64.pt")  # for phase 14(b)
     del grads
     torch.cuda.empty_cache()
+
+
+def spatial_envelope(have: dict, want: dict, loss: float, ref_loss: float, cm1, cm0) -> str:
+    """A banded step's state, loss and confusion against the unsharded
+    step's within ``SPATIAL_TRAIN_TOL``: the comparison as one line, or
+    raise."""
+    loss_d = abs(loss - ref_loss)
+    cell = float((cm1 - cm0).abs().max()) / float(cm0.sum())
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in want if not k.endswith(("running_mean", "running_var",
+                                                 "num_batches_tracked"))]
+    stat_d = max(float((have[k] - want[k]).abs().max()) for k in stats)
+    param_d = max(float((have[k] - want[k]).abs().max())
+                  / max(1.0, float(want[k].abs().max())) for k in params)
+    line = (f"loss {loss!r} against {ref_loss!r} (|diff| {loss_d:.3e}, tolerance "
+            f"{SPATIAL_TRAIN_TOL['loss']}); confusion totals {float(cm1.sum()):.0f} / "
+            f"{float(cm0.sum()):.0f}, largest cell |diff| {cell:.3e} of the pixels (tolerance "
+            f"{SPATIAL_TRAIN_TOL['cell']}); running statistics max |diff| {stat_d:.3e} "
+            f"(tolerance {SPATIAL_TRAIN_TOL['stats']}); parameters max |diff| {param_d:.3e} of "
+            f"max(1, their largest) (tolerance {SPATIAL_TRAIN_TOL['param']})")
+    if (loss_d > SPATIAL_TRAIN_TOL["loss"] or float(cm1.sum()) != float(cm0.sum())
+            or cell > SPATIAL_TRAIN_TOL["cell"] or stat_d > SPATIAL_TRAIN_TOL["stats"]
+            or param_d > SPATIAL_TRAIN_TOL["param"]):
+        raise AssertionError(f"a banded step outside the tolerances: {line}")
+    return line
+
+
+def launches_named(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
 
 
 def spatial_eval_grads(cfg, init: dict, mesh, batch: dict, dtype, banded: bool) -> dict:
@@ -3624,6 +3671,205 @@ def spatial_phase(smi: str) -> None:
     spatial_train_step(smi)
     spatial_trainer(smi)
     print(f"phase 13 (spatial sharding) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# -- phase 14: bands across ranks ---------------------------------------------------------
+RANKS = REPO / "build" / "chip_smoke_spatial_ranks"
+RANKS_WORLD = 6          # (c), (d): data 2 x spatial 3 ranks
+RANKS_TIMEOUT = 300      # seconds a group of ranks may take
+# (a) holds the ranks' step to 13(e)'s one-process banded step at 12(a)'s
+# tolerances (DP_*: the same f32 arithmetic, its sums over the bands taken
+# over ranks in another order), and to the unsharded step within
+# SPATIAL_TRAIN_TOL, 13(e)'s envelope; (b) holds the f64 eval-mode gradient
+# at SPATIAL_GRAD_RTOL, as 13(e) does.
+
+
+def ranks_steps(spec: dict, rank: int) -> dict:
+    """(a) and (b) on one rank of data 1 x spatial 3: the step counted, the
+    same step again with each collective timed, the f64 eval-mode
+    gradient on the plain versions."""
+    cfg = spatial_train_cfg()
+    init = torch.load(DP / "init.pt")
+    batch = {k: v.to("cuda:0") for k, v in torch.load(DP / "batch.pt").items()}
+    world = ensure_distributed("cuda:0")
+    groups = world.spatial_groups(SPATIAL_TRAIN_SHARDS)
+    traffic = groups.traffic
+    out = {}
+    for timed in (False, True):
+        state = dp_state(cfg, init)
+        step = make_spatial_train_step(19, None, group=groups)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        traffic.reset()
+        traffic.timed = timed
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        traffic.timed = False
+        if timed:
+            out.update(timed_s=step_s, seconds=dict(traffic.seconds))
+            del state, m
+            continue
+        out.update(loss=float(m["loss"]), launches=launches_now(), step_s=step_s,
+                   calls=dict(traffic.calls), sent=traffic.bytes_sent,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if rank == 0:
+            torch.save({"loss": float(m["loss"]), "confusion": m["confusion"].cpu(),
+                        "state": dp_host_state(state)}, RANKS / "a_rank0.pt")
+        del state, m
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    half = {k: v[:4] for k, v in batch.items()}
+    with K.plain_versions():
+        model = dp_state(cfg, init).model.double().eval()
+        engine = spatial_infer.SpatialModel(model, ranks=groups)
+        logits = engine(engine.split(half["image"].double().permute(0, 3, 1, 2)),
+                        upsample_pred=True)
+        loss, _ = spatial_loss(logits, engine.split(half["label"], 1), 19, 255, engine.home,
+                               groups)
+        loss.backward()
+        all_reduce_([p.grad for p in model.parameters()], world.group)
+    if rank == 0:
+        torch.save({k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                   RANKS / "b_grads.pt")
+    return out
+
+
+def ranks_refused(spec: dict, rank: int) -> dict:
+    """(d) on one rank: the command, and what it raised."""
+    try:
+        cli_main(spec["argv"])
+    except ValueError as exc:
+        return {"raised": str(exc)}
+    return {"raised": None}
+
+
+def ranks_steps_phase(smi: str) -> None:
+    """(a) One step on 3 ranks against 13(e)'s two steps; (b) the eval-mode
+    gradient against 13(e)'s one-process f64 gradient."""
+    ranks = run_group("14a", where=RANKS, world=SPATIAL_TRAIN_SHARDS, timeout=RANKS_TIMEOUT)
+    got = torch.load(RANKS / "a_rank0.pt")
+    ref = torch.load(SPATIAL / "e_step.pt")
+    init = torch.load(DP / "init.pt")
+    print(f"14(a) one spatial train step, ResNeXt50-32x4d OS16 f32 (TF32 off), batch 16 of "
+          f"513x513, data 1 x spatial {SPATIAL_TRAIN_SHARDS} as {SPATIAL_TRAIN_SHARDS} ranks on "
+          f"cuda:0 over gloo (NCCL refuses two ranks on one card; the phase measures the "
+          f"exchange machinery, not multi-card speed) on {smi}:", flush=True)
+    banded = ref["banded"]
+    moved = float((got["confusion"] - banded["confusion"]).abs().sum()) / 2
+    dp_check("  3 ranks against 13(e)'s one-process banded step",
+             dp_diff(got["state"], banded["state"], init), got["loss"], banded["loss"])
+    print(f"  confusion against the one-process banded step: {moved:.0f} of "
+          f"{float(banded['confusion'].sum()):.0f} pixels change cell (tolerance "
+          f"{DP_MOVED_TOL} of them)", flush=True)
+    if moved / float(banded["confusion"].sum()) > DP_MOVED_TOL:
+        raise AssertionError("14(a): confusion differs from the one-process banded step")
+    un = ref["unsharded"]
+    print("  3 ranks against the one-process unsharded step: " + spatial_envelope(
+        got["state"], un["state"], got["loss"], un["loss"], got["confusion"], un["confusion"]),
+        flush=True)
+    want = {k.name: 0 for k in K.kernels()}
+    want.update({"aspp_depthwise3x3_multi": TRAIN_BATCH,
+                 "depthwise3x3_dilated": 3 * TRAIN_BATCH})
+    for r, res in enumerate(ranks):
+        sec = res["seconds"]
+        print(f"  rank {r} (band {r}): step {res['step_s'] * 1e3:.1f} ms host clock (13(e)'s "
+              f"one-process banded step above); launches {launches_named(res['launches'])}; "
+              f"collective calls a step {res['calls']}; halo bytes sent a step "
+              f"{res['sent'] / 2 ** 20:.2f} MiB; with each call timed (the card synchronised "
+              f"around it; that step {res['timed_s'] * 1e3:.1f} ms): exchanges "
+              f"{sec.get('exchange', 0) * 1e3:.1f} ms forward and "
+              f"{sec.get('exchange_backward', 0) * 1e3:.1f} ms backward, all-reduces "
+              f"{sec.get('all_reduce', 0) * 1e3:.1f} ms; peak memory {res['peak_gib']:.2f} GiB",
+              flush=True)
+        if res["launches"] != want:
+            raise AssertionError(f"14(a) rank {r}: launches {res['launches']} != {want}")
+        if res["calls"] != ranks[0]["calls"] or res["loss"] != ranks[0]["loss"]:
+            raise AssertionError("14(a): the ranks made different calls or report other losses")
+    print("14: the NCCL point-to-point halos (bands on separate cards) cannot run on this "
+          "one-card machine (NCCL refuses two ranks on one card): they wait for a four-chip "
+          "run", flush=True)
+    want = torch.load(SPATIAL / "e_grads64.pt")
+    have = torch.load(RANKS / "b_grads.pt")
+    rel = {k: float((have[k] - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+           for k, a in want.items()}
+    worst = max(rel, key=rel.get)
+    print(f"14(b) eval-mode gradient, 4 crops, f64 on the plain versions, 3 ranks against "
+          f"13(e)'s one process: largest per-leaf |diff| {rel[worst]:.3e} of the leaf's largest "
+          f"at {worst} (tolerance {SPATIAL_GRAD_RTOL})", flush=True)
+    if rel[worst] > SPATIAL_GRAD_RTOL:
+        raise AssertionError("14(b): eval-mode gradients differ")
+
+
+def ranks_train_phase(smi: str) -> None:
+    """(c) ``main(["train", "--distributed", ..., "TRAIN.SPATIAL_SHARDS",
+    "3"])`` on 6 ranks for 4 steps; (d) the same with S = 4 raises on every
+    rank."""
+    device = ["--device", "cuda", "--distributed"]
+    runs = [("data 2 x spatial 3", dp_train_argv(
+        RANKS / "train", 2, "MODEL.SYNC_BN", "True", "TRAIN.SPATIAL_SHARDS",
+        str(SPATIAL_TRAIN_SHARDS), *device))]
+    ranks = run_group("14c", where=RANKS, world=RANKS_WORLD, timeout=RANKS_TIMEOUT, runs=runs)
+    val_frames = sum(1 for _ in (TRAIN / "data" / "validation" / "images").iterdir())
+    data_groups = RANKS_WORLD // SPATIAL_TRAIN_SHARDS
+    name = runs[0][0]
+    hist = ranks[0][name]["history"]
+    losses = [h["loss"] for h in hist]
+    batch_t = np.median([h["batch_time"] for h in hist])
+    print(f"14(c) train --distributed ... TRAIN.SPATIAL_SHARDS {SPATIAL_TRAIN_SHARDS}, "
+          f"{RANKS_WORLD} ranks ({name}) on cuda:0 over gloo ({ranks[0][name]['route']}): "
+          f"{len(hist)} steps, {ranks[0][name]['seconds']:.1f} s command time on {smi}; median "
+          f"step {batch_t * 1e3:.1f} ms = {1 / batch_t:.3f} steps/s = "
+          f"{TRAIN_BATCH / batch_t:.2f} images/s (host clock between steps, rank 0); loss per "
+          f"step {[round(v, 4) for v in losses]}", flush=True)
+    per = TRAIN_BATCH // data_groups
+    epochs = len(hist) // 2
+    want = {"aspp_depthwise3x3_multi": per * len(hist) + val_frames // data_groups * epochs,
+            "depthwise3x3_dilated": 3 * per * len(hist)}
+    for r, res in enumerate(ranks):
+        res = res[name]
+        data_t = np.median([h["data_time"] for h in res["history"]])
+        print(f"  rank {r} (band {r % SPATIAL_TRAIN_SHARDS} of data group "
+              f"{r // SPATIAL_TRAIN_SHARDS}): median host wait for data {data_t * 1e3:.1f} ms a "
+              f"step; peak memory allocated {res['peak_gib']:.2f} GiB; launches "
+              f"{launches_named(res['launches'])} (K4 {per} x {len(hist)} steps + "
+              f"{val_frames // data_groups} x {epochs} validation frames, K3 {3 * per} x "
+              f"{len(hist)}); checkpoints written {res['checkpoints']}", flush=True)
+        if [h["loss"] for h in res["history"]] != losses:
+            raise AssertionError(f"14(c) rank {r}: its losses differ from rank 0's")
+        if launches_named(res["launches"]) != want:
+            raise AssertionError(f"14(c) rank {r}: launches {res['launches']} != {want}")
+        if bool(res["checkpoints"]) != (r == 0):
+            raise AssertionError(f"14(c): rank {r} wrote checkpoints {res['checkpoints']}")
+    if len(hist) != 4 or not (np.isfinite(losses).all()
+                              and np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise AssertionError(f"14(c): {len(hist)} steps, the loss did not fall: {losses}")
+    argv = dp_train_argv(RANKS / "refused", 1, "MODEL.SYNC_BN", "True",
+                         "TRAIN.SPATIAL_SHARDS", "4", *device)
+    t0 = time.perf_counter()
+    refused = run_group("14d", where=RANKS, world=RANKS_WORLD, timeout=RANKS_TIMEOUT, argv=argv)
+    words = f"TRAIN.SPATIAL_SHARDS=4 does not divide the world of {RANKS_WORLD} ranks"
+    print(f"14(d) the same command with TRAIN.SPATIAL_SHARDS 4 on {RANKS_WORLD} ranks: every "
+          f"rank raised ValueError({refused[0]['raised']}) in {time.perf_counter() - t0:.1f} s "
+          "(the group's start included)", flush=True)
+    if any(words not in (r["raised"] or "") for r in refused):
+        raise AssertionError(f"14(d): not every rank refused: {refused}")
+
+
+def spatial_ranks_phase(smi: str) -> None:
+    """Phase 14: bands across ranks at full width, ranks on cuda:0 over gloo."""
+    shutil.rmtree(RANKS, ignore_errors=True)
+    RANKS.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks_steps_phase(smi)
+    ranks_train_phase(smi)
+    print(f"phase 14 (bands across ranks) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+RANK_TASKS = {"a": dp_rank_steps, "b": dp_rank_train, "14a": ranks_steps, "14c": dp_rank_train,
+              "14d": ranks_refused}
 
 
 def sweep(smi: str) -> None:
@@ -3823,6 +4069,8 @@ def main() -> None:
     clock(start, "phase 12 (data-parallel training)")
     spatial_phase(smi)
     clock(start, "phase 13 (spatial sharding)")
+    spatial_ranks_phase(smi)
+    clock(start, "phase 14 (bands across ranks)")
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -203,7 +203,7 @@ def task_trainer(spec, rank: int) -> dict:
         "accum": (["TRAIN.GRAD_ACCUM_STEPS", "2"], {}),
         "batch": (["TRAIN.BATCH_SIZE", "3"], {}),
         "micro": (["MODEL.SYNC_BN", "True", "TRAIN.GRAD_ACCUM_STEPS", "4"], {}),
-        "spatial": (["TRAIN.SPATIAL_SHARDS", "2"], {}),
+        "spatial": (["TRAIN.SPATIAL_SHARDS", "3"], {}),
     }
     for name, (extra, kw) in refusals.items():
         try:
@@ -589,7 +589,7 @@ def test_rank_streams_are_distinct_and_repeatable(trainers, stream):
     ("accum", "NotImplementedError", "GRAD_ACCUM_STEPS > 1 requires the SyncBN"),
     ("batch", "ValueError", "does not split over 2 ranks"),
     ("micro", "ValueError", "not divisible by TRAIN.GRAD_ACCUM_STEPS=4 x 2 ranks"),
-    ("spatial", "NotImplementedError", "row bands across the ranks"),
+    ("spatial", "ValueError", "TRAIN.SPATIAL_SHARDS=3 does not divide the world of 2 ranks"),
 ])
 def test_trainer_refusals_on_two_ranks(trainers, name, kind, words):
     for r in trainers:

@@ -309,7 +309,17 @@ class TestTrainerSpatial:
         with pytest.raises(ValueError, match="OUTPUT_STRIDE"):
             trainer._on_device(small, False)
 
-    def test_trainer_rejects_bands_across_ranks(self):
-        """``distributed=True`` with bands (bands across ranks) is not ported."""
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(self._cfg(2), device="cpu", distributed=True)
+    def test_trainer_rejects_bands_across_ranks(self, tmp_path):
+        """``distributed=True`` with bands, once refused, now trains: on two
+        gloo ranks the Trainer builds its subgroups (rank r: band r of data
+        group 0), routes to the grouped spatial step and takes one step, the
+        ranks' losses equal (``tests/test_torch_spatial_ranks.py`` holds
+        the steps to JAX's and to one process)."""
+        from test_torch_spatial_ranks import run_ranks
+
+        ranks = run_ranks(tmp_path, "trainer_steps", 2, open_group=False, steps=1)
+        for r, res in enumerate(ranks):
+            assert res["route"].startswith("make_spatial_train_step")
+            assert res["groups"] == (2, r, 0, 1, "gloo")
+            assert len(res["losses"]) == 1 and np.isfinite(res["losses"]).all()
+            assert res["losses"] == ranks[0]["losses"]

@@ -522,14 +522,18 @@ def test_train_command_on_cpu(tmp_path):
     assert any(f.startswith("log") for f in os.listdir(trainer.output_dir))
 
 
-def test_trainer_refuses_multi_device(tmp_path):
+def test_trainer_refuses_multi_device(tmp_path, monkeypatch):
     """Two spatial shards do not divide the one CPU device (the JAX
-    trainer's ValueError); bands across the ranks of a process group are
-    not ported."""
+    trainer's ValueError).  With ``distributed`` the bands lie across the
+    ranks of a process group (``tests/test_torch_spatial_ranks.py``), so
+    without one the trainer asks for torchrun's environment and never
+    falls back to the device count of one process."""
     cfg = _dummy_cfg(tmp_path, ["TRAIN.SPATIAL_SHARDS", "2"])
     with pytest.raises(ValueError, match="SPATIAL_SHARDS=2 does not divide the device count 1"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
         Trainer(cfg, device="cpu", distributed=True)
 
 

@@ -15,12 +15,24 @@ for CPU and CUDA tensors alike (two ranks on one card, where NCCL refuses
 to run, go over gloo).  Host-side agreement (the preemption flag, the
 barrier after a checkpoint) goes over a gloo group on CPU tensors, so it
 never waits for the card.
+
+Bands across ranks (``TRAIN.SPATIAL_SHARDS`` S under ``train
+--distributed``): :meth:`World.spatial_groups` places rank r at band
+``r % S`` of data group ``r // S``, so consecutive ranks share one image's
+rows, and opens two subgroups beside the world: the S ranks of its image
+(the halo exchanges, ASPP's pooled sums) and the ranks holding its band
+index, one a data group (BatchNorm over ASPP's pooled vectors, which every
+band of an image holds a copy of).  :class:`Traffic` counts what the bands'
+collectives did, so a step can check that every rank made the same ones.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import datetime
 import os
+import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +48,8 @@ _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 # the gloo group for host tensors of each NCCL default group (created once:
 # new_group is itself a collective every rank enters in the same order)
 _HOST_GROUPS: Dict[object, object] = {}
+# the subgroups of bands across ranks, by default group and band count
+_SPATIAL_GROUPS: Dict[Tuple[object, int], "SpatialGroups"] = {}
 
 
 def rank() -> int:
@@ -116,6 +130,99 @@ class World:
     def barrier(self) -> None:
         """Wait for every rank: an all-reduce of one host value."""
         dist.all_reduce(torch.zeros(1, dtype=torch.int32), group=self.host_group)
+
+    def spatial_groups(self, shards: int) -> "SpatialGroups":
+        """This rank's place in bands across ranks: band ``rank % shards`` of
+        data group ``rank // shards``.
+
+        Every rank opens every subgroup, in one order (``new_group`` is
+        itself a collective), once per world and band count.  A band count
+        that does not divide the world raises ``ValueError`` on every rank
+        before any collective (the JAX trainer's device-count check).
+        """
+        if shards < 1 or self.size % shards:
+            raise ValueError(f"TRAIN.SPATIAL_SHARDS={shards} does not divide the world of "
+                             f"{self.size} ranks")
+        key = (self.group, shards)
+        if key not in _SPATIAL_GROUPS:
+            spatial = data = None
+            for g in range(self.size // shards):
+                ranks = list(range(g * shards, (g + 1) * shards))
+                made = dist.new_group(ranks, timeout=TIMEOUT)
+                spatial = made if self.rank in ranks else spatial
+            for b in range(shards):
+                ranks = list(range(b, self.size, shards))
+                made = dist.new_group(ranks, timeout=TIMEOUT)
+                data = made if self.rank in ranks else data
+            _SPATIAL_GROUPS[key] = SpatialGroups(
+                self, shards, self.rank % shards, self.rank // shards, self.size // shards,
+                spatial, data, dist.get_backend(spatial))
+        return _SPATIAL_GROUPS[key]
+
+
+class Traffic:
+    """What the collectives of bands across ranks did on this rank: calls by
+    kind (``exchange`` and ``exchange_backward`` for halos, ``all_reduce``
+    for sums), the halo bytes sent, and, with ``timed``, the seconds spent
+    in each kind (the card synchronised before and after each call, so the
+    time is the call's own, not the work queued before it)."""
+
+    def __init__(self):
+        self.timed = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
+        self.bytes_sent = 0
+
+    @contextlib.contextmanager
+    def record(self, kind: str, device: torch.device):
+        self.calls[kind] += 1
+        if not self.timed:
+            yield
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.seconds[kind] += time.perf_counter() - t0
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialGroups:
+    """Bands across ranks as one rank sees them (:meth:`World.spatial_groups`).
+
+    ``spatial`` holds the ``shards`` ranks of this rank's image, in band
+    order (global ranks ``data * shards + b``); ``data_group`` the ranks
+    holding band ``band``, one a data group; ``backend`` is the spatial
+    group's (gloo stages halos of CUDA tensors through host memory).
+    """
+
+    world: World
+    shards: int
+    band: int
+    data: int
+    data_groups: int
+    spatial: object
+    data_group: object
+    backend: str
+    traffic: Traffic = dataclasses.field(default_factory=Traffic, compare=False)
+
+    def peer(self, band: int) -> int:
+        """The global rank holding band ``band`` of this rank's image."""
+        return self.data * self.shards + band
+
+    def check_calls(self) -> None:
+        """Raise unless every rank has made as many collective calls of bands
+        as this one (one host all-reduce).  Every rank's graph makes the same
+        calls in one order; a rank whose graph skipped one shows here."""
+        low, high = self.world.span(sum(self.traffic.calls.values()))
+        if low != high:
+            raise RuntimeError(f"the ranks made {low} to {high} collective calls of bands: "
+                               "their graphs diverged")
 
 
 def ensure_distributed(device: DeviceLike = "cuda") -> World:

@@ -42,14 +42,39 @@ device, a copy on every other distinct device of the mesh
 (:meth:`SpatialModel.sync` refreshes the copies, :meth:`reduce_grads` adds
 their gradients onto the model's in mesh order).  A module type with no
 banded form raises; nothing gathers an intermediate onto one device.
+
+**Bands across ranks** (``SpatialModel(model, ranks=...)``, the groups of
+``distributed.World.spatial_groups``): each rank of a ``torch.distributed``
+group holds one band of its data group's images, and the same banded forms
+run on it with three collectives in place of the one-process reads:
+
+* every window's rows come from :func:`exchange_plan`, which each rank
+  works out from the bands' bounds and every band's window alone (no rank
+  sends a size or an index), and :class:`_Exchange` moves them with
+  batched point-to-point sends (``batch_isend_irecv``) over the image's
+  ranks; its backward sends each received row's cotangent back to the
+  row's owner, who adds what comes in in band order.  Every rank calls
+  the exchange for every window, the edge bands too, so the ranks' graphs
+  make the same calls in one order.  Under gloo a CUDA tensor's halos go
+  through pinned host memory (gloo sends no CUDA tensor); under NCCL they
+  stay on the card;
+* training BatchNorm all-reduces its ``[sum x, sum x^2, count]`` and
+  ``[sum dy, sum dy * xhat]`` over the world (global-batch statistics);
+* ASPP's pooled sums all-reduce over the image's ranks, forward and
+  backward (:class:`_AllReduce`); every band then holds its image's pooled
+  vector, so the BatchNorm over pooled vectors reduces over the ranks of
+  one band index, which count each image once; each band back-propagates
+  its own rows' share of the cotangent, and BatchNorm's backward is linear
+  in it, so the shares add up to the whole at the pooled all-reduce.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -69,6 +94,7 @@ from ..models.resize import resize_nchw
 from ..models.resnet import BasicBlock, Bottleneck, ResNetBackbone
 from ..models.xception import Xception65, XceptionBlock
 from ..ops.resize import _align_corners_matrix, _separable_resize
+from .distributed import SpatialGroups, Traffic
 from .mesh import Mesh, _device, distinct
 
 Groups = List[List[torch.device]]
@@ -92,17 +118,25 @@ def split_even(x: torch.Tensor, dim: int, parts: int) -> List[torch.Tensor]:
 
 
 class Bands:
-    """A tensor whose rows lie in bands: ``parts[g][b]`` is data shard g's
-    band b on ``devices[g][b]``, holding global rows ``bounds[b]`` of
-    ``height`` along dimension ``dim`` (2 for NCHW, 1 for NHWC or labels).
-    Every data shard splits its rows the same way."""
+    """A tensor whose rows lie in bands: ``parts[g][i]`` is data shard g's
+    band ``index[i]`` on ``devices[g][i]``, holding global rows
+    ``bounds[index[i]]`` of ``height`` along dimension ``dim`` (2 for NCHW,
+    1 for NHWC or labels).  Every data shard splits its rows the same way.
 
-    def __init__(self, parts: List[List[torch.Tensor]], devices: Groups, height: int, dim: int):
+    In one process every band is local (``index`` is every band).  With
+    ``ranks`` (bands across ranks) ``parts`` is ``[[this rank's band]]`` of
+    its data group's slice, and windows exchange rows with the image's
+    other ranks (:meth:`fetch_bands`)."""
+
+    def __init__(self, parts: List[List[torch.Tensor]], devices: Groups, height: int, dim: int,
+                 ranks: Optional[SpatialGroups] = None):
         self.parts, self.devices, self.height, self.dim = parts, devices, height, dim
-        shards = len(devices[0])
-        if height < shards:
-            raise ValueError(f"{height} rows over {shards} bands leaves a band empty")
-        self.bounds = row_bounds(height, shards)
+        self.ranks = ranks
+        self.count = len(devices[0]) if ranks is None else ranks.shards
+        if height < self.count:
+            raise ValueError(f"{height} rows over {self.count} bands leaves a band empty")
+        self.bounds = row_bounds(height, self.count)
+        self.index = list(range(self.count)) if ranks is None else [ranks.band]
 
     @classmethod
     def split(cls, x: torch.Tensor, devices: Groups, dim: int) -> "Bands":
@@ -113,10 +147,17 @@ class Bands:
                  for g, devs in zip(groups, devices)]
         return cls(parts, devices, x.shape[dim], dim)
 
+    @classmethod
+    def band_of(cls, x: torch.Tensor, ranks: SpatialGroups, device: torch.device,
+                dim: int) -> "Bands":
+        """This rank's band of ``x`` (its data group's slice, every row)."""
+        a, b = row_bounds(x.shape[dim], ranks.shards)[ranks.band]
+        return cls([[x.narrow(dim, a, b - a).to(device)]], [[device]], x.shape[dim], dim, ranks)
+
     def like(self, parts: List[List[torch.Tensor]], height: Optional[int] = None,
              dim: Optional[int] = None) -> "Bands":
         return Bands(parts, self.devices, self.height if height is None else height,
-                     self.dim if dim is None else dim)
+                     self.dim if dim is None else dim, self.ranks)
 
     def map(self, fn: Callable[[torch.Tensor, torch.device], torch.Tensor]) -> "Bands":
         """An op that keeps the rows: ``fn(piece, device)`` on every piece."""
@@ -136,8 +177,13 @@ class Bands:
         return [t for ts in self.parts for t in ts]
 
     @property
+    def local_bounds(self) -> List[Tuple[int, int]]:
+        """The global rows of each local band, in ``parts`` order."""
+        return [self.bounds[b] for b in self.index]
+
+    @property
     def shape(self) -> Tuple[int, ...]:
-        """The global shape."""
+        """The global shape (of the data group's slice, across ranks)."""
         first = self.parts[0][0]
         size = list(first.shape)
         size[0] = sum(ts[0].shape[0] for ts in self.parts)
@@ -156,20 +202,23 @@ class Bands:
                 piece = t if (lo, hi) == (a, b) else t.narrow(dim, lo - a, hi - lo)
                 pieces.append(piece.to(device))
         template = self.parts[g][0]
-
-        def filler(rows: int) -> torch.Tensor:
-            size = list(template.shape)
-            size[dim] = rows
-            out = torch.full(size, fill, dtype=template.dtype, device=device)
-            if template.dim() == 4 and dim == 2:
-                out = out.contiguous(memory_format=torch.channels_last)
-            return out
-
         if start < 0:
-            pieces.insert(0, filler(-start))
+            pieces.insert(0, _filled(template, dim, -start, fill, device))
         if stop > self.height:
-            pieces.append(filler(stop - self.height))
+            pieces.append(_filled(template, dim, stop - self.height, fill, device))
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+    def fetch_bands(self, g: int, ranges: Sequence[Tuple[int, int]],
+                    fill: float = 0.0) -> Iterator[torch.Tensor]:
+        """Each local band's window of data shard g: band b reads global rows
+        ``ranges[b]`` (``ranges`` holds every band's, local or not).  In one
+        process, :meth:`fetch` a band at a time; across ranks, one exchange
+        with the image's other ranks, each of which makes the same call."""
+        if self.ranks is None:
+            return (self.fetch(g, dev, *ranges[b], fill=fill)
+                    for b, dev in zip(self.index, self.devices[g]))
+        plan = exchange_plan(self.bounds, ranges, self.ranks.band, self.height)
+        return iter([_Exchange.apply(self.parts[g][0], plan, self.ranks, self.dim, fill)])
 
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the first band's), for
@@ -179,29 +228,203 @@ class Bands:
         return rows[0] if len(rows) == 1 else torch.cat(rows, 0)
 
 
+def _layout(t: torch.Tensor) -> torch.memory_format:
+    """The memory format of an activation: channels last for a 4-D tensor
+    laid out so, else contiguous."""
+    if t.dim() == 4 and t.stride(1) == 1 and t.shape[1] > 1:
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _filled(template: torch.Tensor, dim: int, rows: int, fill: float,
+            device: torch.device) -> torch.Tensor:
+    """``rows`` rows of ``fill`` shaped and laid out as ``template``."""
+    size = list(template.shape)
+    size[dim] = rows
+    out = torch.full(size, fill, dtype=template.dtype, device=device)
+    return out.contiguous(memory_format=_layout(template))
+
+
+class ExchangePlan(NamedTuple):
+    """One band's part in a window's exchange.  ``recv``: ``(band, lo, hi)``
+    for each band holding global rows of its window, in row order (its own
+    band among them); ``send``: ``(band, lo, hi)``, the rows of its own band
+    each other band's window reads; ``top``/``bottom``: fill rows outside the
+    image; ``own``: its band's global rows."""
+
+    recv: Tuple[Tuple[int, int, int], ...]
+    send: Tuple[Tuple[int, int, int], ...]
+    top: int
+    bottom: int
+    own: Tuple[int, int]
+
+
+def exchange_plan(bounds: Sequence[Tuple[int, int]], ranges: Sequence[Tuple[int, int]],
+                  band: int, height: int) -> ExchangePlan:
+    """Band ``band``'s part when every band b reads global rows ``ranges[b]``
+    of a tensor banded by ``bounds``: worked out on every rank from these
+    alone, so the ranks agree on every size without sending one."""
+    start, stop = ranges[band]
+    recv = tuple((j, max(start, a), min(stop, b)) for j, (a, b) in enumerate(bounds)
+                 if max(start, a) < min(stop, b))
+    a0, b0 = bounds[band]
+    send = tuple((j, max(lo, a0), min(hi, b0)) for j, (lo, hi) in enumerate(ranges)
+                 if j != band and max(lo, a0) < min(hi, b0))
+    return ExchangePlan(recv, send, max(0, -start), max(0, stop - height), (a0, b0))
+
+
+def _p2p(sends: Sequence[Tuple[int, torch.Tensor]], recvs: Sequence[Tuple[int, Sequence[int]]],
+         ranks: SpatialGroups, like: torch.Tensor, kind: str) -> List[torch.Tensor]:
+    """Send each ``(band, tensor)`` of ``sends`` to that band's rank and
+    receive a tensor of each ``(band, shape)`` of ``recvs`` from it, in one
+    batch over the image's ranks; the received tensors on ``like``'s device
+    in its type, contiguous (the collectives take no other layout).  Under
+    gloo, CUDA tensors go through pinned host buffers.  A rank with nothing
+    to move makes no call."""
+    device = like.device
+    stage = ranks.backend == "gloo" and device.type == "cuda"
+    where = torch.device("cpu") if stage else device
+
+    def buffer(shape):
+        return torch.empty(tuple(shape), dtype=like.dtype, device=where, pin_memory=stage)
+
+    with ranks.traffic.record(kind, device):
+        ops, out = [], []
+        for band, t in sends:
+            buf = buffer(t.shape)
+            buf.copy_(t)
+            ranks.traffic.bytes_sent += buf.numel() * buf.element_size()
+            ops.append(dist.P2POp(dist.isend, buf, ranks.peer(band), group=ranks.spatial))
+        for band, shape in recvs:
+            buf = buffer(shape)
+            out.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, ranks.peer(band), group=ranks.spatial))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return [t.to(device, non_blocking=True) for t in out] if stage else out
+
+
+class _Exchange(torch.autograd.Function):
+    """A window's rows across ranks: ``apply(band, plan, ranks, dim, fill)``
+    returns the rows ``plan`` reads, its own band's and its peers' in row
+    order between the fills.  Backward: each received row's cotangent goes
+    back to its owner; a band's gradient adds its own rows' and what each
+    peer sends back, in band order."""
+
+    @staticmethod
+    def forward(ctx, x, plan: ExchangePlan, ranks: SpatialGroups, dim: int, fill: float):
+        a0 = plan.own[0]
+        rows = lambda n: [*x.shape[:dim], n, *x.shape[dim + 1:]]  # noqa: E731
+        sends = [(j, x.narrow(dim, lo - a0, hi - lo)) for j, lo, hi in plan.send]
+        got = iter(_p2p(sends, [(j, rows(hi - lo)) for j, lo, hi in plan.recv if j != ranks.band],
+                        ranks, x, "exchange"))
+        pieces = [_filled(x, dim, plan.top, fill, x.device)] if plan.top else []
+        pieces += [x.narrow(dim, lo - a0, hi - lo) if j == ranks.band else next(got)
+                   for j, lo, hi in plan.recv]
+        if plan.bottom:
+            pieces.append(_filled(x, dim, plan.bottom, fill, x.device))
+        ctx.plan, ctx.ranks, ctx.dim, ctx.shape = plan, ranks, dim, x.shape
+        ctx.layout = _layout(x)
+        return torch.cat(pieces, dim).contiguous(memory_format=ctx.layout)
+
+    @staticmethod
+    def backward(ctx, dy):
+        plan, ranks, dim = ctx.plan, ctx.ranks, ctx.dim
+        a0 = plan.own[0]
+        rows = lambda n: [*ctx.shape[:dim], n, *ctx.shape[dim + 1:]]  # noqa: E731
+        adds, sends, at = [], [], plan.top
+        for j, lo, hi in plan.recv:
+            piece = dy.narrow(dim, at, hi - lo)
+            at += hi - lo
+            if j == ranks.band:
+                adds.append((j, lo, hi, piece))
+            else:
+                sends.append((j, piece))
+        got = _p2p(sends, [(j, rows(hi - lo)) for j, lo, hi in plan.send], ranks, dy,
+                   "exchange_backward")
+        adds += [(j, lo, hi, t) for (j, lo, hi), t in zip(plan.send, got)]
+        dx = torch.zeros(ctx.shape, dtype=dy.dtype, device=dy.device).contiguous(
+            memory_format=ctx.layout)
+        for _, lo, hi, t in sorted(adds, key=lambda a: a[0]):
+            dx.narrow(dim, lo - a0, hi - lo).add_(t)
+        return dx, None, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over ``group`` whose cotangent is the same sum: every rank's
+    copy of the result feeds its own part of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, group, traffic: Traffic):
+        ctx.group, ctx.traffic = group, traffic
+        y = x.clone(memory_format=torch.contiguous_format)
+        with traffic.record("all_reduce", y.device):
+            dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = dy.clone(memory_format=torch.contiguous_format)
+        with ctx.traffic.record("all_reduce", g.device):
+            dist.all_reduce(g, group=ctx.group)
+        return g, None, None
+
+
+def window_ranges(height: int, shards: int, k: int, s: int, p: int, d: int):
+    """A self-padding row window over ``shards`` bands (:func:`_window`):
+    the output height, the global input rows each band reads, and each
+    band's crop ``(first row, rows)`` of its output.  A band not at the top
+    takes ``ceil(p / s) * s`` rows above its first input row, so the
+    module's own pad lands on rows that are cropped."""
+    h_out = (height + 2 * p - d * (k - 1) - 1) // s + 1
+    lead = -(-p // s)  # output rows that may read the module's own top pad
+    ranges, crops = [], []
+    for o0, o1 in row_bounds(h_out, shards):
+        j0 = min(o0, lead)
+        ranges.append(((o0 - j0) * s, min(height, (o1 - 1) * s - p + (k - 1) * d + 1)))
+        crops.append((j0, o1 - o0))
+    return h_out, ranges, crops
+
+
+def padded_ranges(height: int, shards: int, k: int, s: int, d: int, top: int, bottom: int):
+    """A row window after an explicit zero pad (:func:`_padded_window`): the
+    output height and the global rows each band reads (outside ``[0,
+    height)``: zeros)."""
+    h_out = (height + top + bottom - d * (k - 1) - 1) // s + 1
+    return h_out, [(o0 * s - top, (o1 - 1) * s + (k - 1) * d + 1 - top)
+                   for o0, o1 in row_bounds(h_out, shards)]
+
+
+def resize_ranges(mh: np.ndarray, shards: int) -> List[Tuple[int, int]]:
+    """The source rows each output band of a resize by matrix ``mh`` (out x
+    in) touches (:func:`_resize_rows`)."""
+    ranges = []
+    for o0, o1 in row_bounds(mh.shape[0], shards):
+        cols = np.nonzero(mh[o0:o1].any(axis=0))[0]
+        ranges.append((int(cols.min()), int(cols.max()) + 1))
+    return ranges
+
+
 def _window(x: Bands, fn, k: int, s: int, p: int, d: int) -> Bands:
     """A row window that pads itself: ``fn(extended band, device)`` is the
     module's own call (kernel ``k``, stride ``s``, symmetric pad ``p``,
     dilation ``d`` along the rows), run on the band extended by real rows
     and cropped back.  ``fn`` may return a list (K4's branches)."""
-    h_out = (x.height + 2 * p - d * (k - 1) - 1) // s + 1
-    bounds = row_bounds(h_out, len(x.devices[0]))
-    lead = -(-p // s)  # output rows that may read the module's own top pad
+    h_out, ranges, crops = window_ranges(x.height, x.count, k, s, p, d)
     outs = []
     for g, devs in enumerate(x.devices):
         per_band = []
-        for (o0, o1), dev in zip(bounds, devs):
-            j0 = min(o0, lead)
-            start = (o0 - j0) * s
-            stop = min(x.height, (o1 - 1) * s - p + (k - 1) * d + 1)
-            y = fn(x.fetch(g, dev, start, stop), dev)
-            crop = (lambda t: t.narrow(x.dim, j0, o1 - o0))
+        for b, src, dev in zip(x.index, x.fetch_bands(g, ranges), devs):
+            j0, rows = crops[b]
+            y = fn(src, dev)
+            crop = (lambda t: t.narrow(x.dim, j0, rows))
             per_band.append([crop(t) for t in y] if isinstance(y, (list, tuple)) else crop(y))
         outs.append(per_band)
     if isinstance(outs[0][0], list):
-        return [Bands([[band[i] for band in per_band] for per_band in outs], x.devices, h_out,
-                      x.dim) for i in range(len(outs[0][0]))]
-    return Bands(outs, x.devices, h_out, x.dim)
+        return [x.like([[band[i] for band in per_band] for per_band in outs], h_out)
+                for i in range(len(outs[0][0]))]
+    return x.like(outs, h_out)
 
 
 def _padded_window(x: Bands, fn, k: int, s: int, d: int, top: int, bottom: int) -> Bands:
@@ -209,11 +432,9 @@ def _padded_window(x: Bands, fn, k: int, s: int, d: int, top: int, bottom: int) 
     ``top`` and ``bottom`` rows: each band fetches its rows with zeros
     outside the image, and ``fn`` (which pads no rows) computes exactly the
     band's output rows."""
-    h_out = (x.height + top + bottom - d * (k - 1) - 1) // s + 1
-    bounds = row_bounds(h_out, len(x.devices[0]))
-    parts = [[fn(x.fetch(g, dev, o0 * s - top, (o1 - 1) * s + (k - 1) * d + 1 - top), dev)
-              for (o0, o1), dev in zip(bounds, devs)] for g, devs in enumerate(x.devices)]
-    return Bands(parts, x.devices, h_out, x.dim)
+    h_out, ranges = padded_ranges(x.height, x.count, k, s, d, top, bottom)
+    return x.like([[fn(src, dev) for src, dev in zip(x.fetch_bands(g, ranges), devs)]
+                   for g, devs in enumerate(x.devices)], h_out)
 
 
 def k4_rows(height: int, shards: int, dilations: Sequence[int]) -> List[int]:
@@ -221,6 +442,14 @@ def k4_rows(height: int, shards: int, dilations: Sequence[int]) -> List[int]:
     band and ``max(dilations)`` rows each side, clipped at the edges."""
     dmax = max(dilations)
     return [min(height, o1 + dmax) - max(0, o0 - dmax) for o0, o1 in row_bounds(height, shards)]
+
+
+def _resize_band(src: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+    """Rows ``mh`` (a slice of the H matrix) and matrix ``mw`` of the
+    align-corners resize of NCHW ``src``, in f32 as ``resize_align_corners``
+    resizes, returned in ``src``'s type."""
+    y = _separable_resize(src.permute(0, 2, 3, 1).float(), np.ascontiguousarray(mh), mw)
+    return y.to(src.dtype).permute(0, 3, 1, 2)
 
 
 def _resize_rows(x: Bands, out_hw: Tuple[int, int]) -> Bands:
@@ -233,36 +462,32 @@ def _resize_rows(x: Bands, out_hw: Tuple[int, int]) -> Bands:
         return x
     mh = _align_corners_matrix(x.height, out_h)
     mw = _align_corners_matrix(in_w, out_w)
-    bounds = row_bounds(out_h, len(x.devices[0]))
+    ranges = resize_ranges(mh, x.count)
+    bounds = row_bounds(out_h, x.count)
     parts = []
-    for g, devs in enumerate(x.devices):
-        band_parts = []
-        for (o0, o1), dev in zip(bounds, devs):
-            cols = np.nonzero(mh[o0:o1].any(axis=0))[0]
-            lo, hi = int(cols.min()), int(cols.max()) + 1
-            src = x.fetch(g, dev, lo, hi)
-            y = _separable_resize(src.permute(0, 2, 3, 1).float(),
-                                  np.ascontiguousarray(mh[o0:o1, lo:hi]), mw)
-            band_parts.append(y.to(src.dtype).permute(0, 3, 1, 2))
-        parts.append(band_parts)
-    return Bands(parts, x.devices, out_h, x.dim)
+    for g in range(len(x.devices)):
+        parts.append([_resize_band(src, mh[bounds[b][0]:bounds[b][1], ranges[b][0]:ranges[b][1]],
+                                   mw) for b, src in zip(x.index, x.fetch_bands(g, ranges))])
+    return x.like(parts, out_h)
 
 
 class _BandBatchNorm(torch.autograd.Function):
     """Training BatchNorm over pieces on their own devices (the bands and
     data shards of one tensor, or ASPP's pooled vectors).
 
-    ``apply(eps, n, *xs, *weights, *biases)``: n pieces, each with the
-    weight and bias of its device's copy.  Forward: ``[sum x, sum x^2,
-    count]`` a channel (in at least f32) added in piece order on the first
-    piece's device, mean ``E[x]``, variance ``max(E[x^2] - E[x]^2, 0)``
-    (``layers._GlobalBatchNorm``'s math, flax's fast variance).  Backward:
-    ``[sum dy, sum dy * xhat]`` added likewise.  Returns the n outputs, the
-    mean and the biased variance (not differentiable).
+    ``apply(eps, n, group, traffic, *xs, *weights, *biases)``: n pieces,
+    each with the weight and bias of its device's copy.  Forward: ``[sum x,
+    sum x^2, count]`` a channel (in at least f32) added in piece order on
+    the first piece's device, then all-reduced over ``group`` (bands across
+    ranks; None in one process), mean ``E[x]``, variance ``max(E[x^2] -
+    E[x]^2, 0)`` (``layers._GlobalBatchNorm``'s math, flax's fast
+    variance).  Backward: ``[sum dy, sum dy * xhat]`` added likewise.
+    Returns the n outputs, the mean and the biased variance (not
+    differentiable).
     """
 
     @staticmethod
-    def forward(ctx, eps, n, *args):
+    def forward(ctx, eps, n, group, traffic, *args):
         xs, ws, bs = args[:n], args[n:2 * n], args[2 * n:]
         c = xs[0].shape[1]
         dims = [0, *range(2, xs[0].dim())]
@@ -275,6 +500,9 @@ class _BandBatchNorm(torch.autograd.Function):
             count = torch.full((1,), x.numel() // c, dtype=acc, device=x.device)
             local = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]).to(home)
             total = local if total is None else total + local
+        if group is not None:
+            with traffic.record("all_reduce", home):
+                dist.all_reduce(total, group=group)
         count = total[2 * c]
         mean = total[:c] / count
         raw = total[c:2 * c] / count - mean * mean
@@ -286,7 +514,7 @@ class _BandBatchNorm(torch.autograd.Function):
             xhat = (x.to(acc) - m) * s
             ys.append((xhat * w.view(shape).to(acc) + b.view(shape).to(acc)).to(x.dtype))
         ctx.save_for_backward(*xs, *ws, mean, invstd, (raw > 0).to(acc), count)
-        ctx.n = n
+        ctx.n, ctx.group, ctx.traffic = n, group, traffic
         ctx.mark_non_differentiable(mean, var)
         return (*ys, mean, var)
 
@@ -310,6 +538,10 @@ class _BandBatchNorm(torch.autograd.Function):
             dys.append(dy)
             locals_.append(local)
             total = local.to(home) if total is None else total + local.to(home)
+        if ctx.group is not None:
+            total = total.clone()  # the locals stay this rank's weight and bias gradients
+            with ctx.traffic.record("all_reduce", home):
+                dist.all_reduce(total, group=ctx.group)
         mean_dy = total[:c] / count
         # a variance clipped at 0 passes no gradient (flax's jnp.maximum)
         mean_dy_xhat = total[c:] / count * moving
@@ -322,7 +554,7 @@ class _BandBatchNorm(torch.autograd.Function):
             dxs.append(dx.to(x.dtype))
             dws.append(local[c:].to(w.dtype))
             dbs.append(local[:c].to(w.dtype))
-        return (None, None, *dxs, *dws, *dbs)
+        return (None, None, None, None, *dxs, *dws, *dbs)
 
 
 class SpatialModel:
@@ -335,14 +567,22 @@ class SpatialModel:
     ``__call__`` takes NCHW bands (or an NCHW tensor, split here) and
     returns the logits as bands.  The model's ``training`` flag and
     ``TRAIN.REMAT_BACKBONE`` apply as in its own forward.
+
+    ``ranks`` (bands across ranks, in place of ``mesh``): this rank holds
+    band ``ranks.band`` of its data group's images on the model's device,
+    the one copy of the model; the caller broadcasts the parameters at the
+    start and sums the gradients over the world (``make_spatial_train_step``).
     """
 
-    def __init__(self, model: nn.Module, mesh: Mesh, spatial_axis: str = "grid",
-                 data_axis: Optional[str] = None):
+    def __init__(self, model: nn.Module, mesh: Optional[Mesh] = None, spatial_axis: str = "grid",
+                 data_axis: Optional[str] = None, ranks: Optional[SpatialGroups] = None):
         self.model = model
         self.mesh = mesh
-        if data_axis is None:
-            self.groups: Groups = [mesh.along(spatial_axis)]
+        self.ranks = ranks
+        if ranks is not None:
+            self.groups: Groups = [[next(model.parameters()).device]]
+        elif data_axis is None:
+            self.groups = [mesh.along(spatial_axis)]
         else:
             self.groups = [list(row) for row in mesh.submesh(data_axis, spatial_axis).devices]
         devices = distinct(d for ds in self.groups for d in ds)
@@ -405,6 +645,9 @@ class SpatialModel:
 
     # -- entry -------------------------------------------------------------------
     def split(self, x: torch.Tensor, dim: int = 2) -> Bands:
+        """``x`` as bands: split over the mesh, or this rank's band of it."""
+        if self.ranks is not None:
+            return Bands.band_of(x, self.ranks, self.home, dim)
         return Bands.split(x, self.groups, dim)
 
     def __call__(self, x, upsample_pred: bool = True) -> Bands:
@@ -482,24 +725,24 @@ class SpatialModel:
 
     def batch_norm(self, m: BatchNorm2d, x: Bands) -> Bands:
         parts = self._batch_norm(m, [t for ts in x.parts for t in ts],
-                                 [d for ds in x.devices for d in ds])
+                                 [d for ds in x.devices for d in ds],
+                                 None if self.ranks is None else self.ranks.world.group)
         shards = len(x.devices[0])
         return x.like([parts[i:i + shards] for i in range(0, len(parts), shards)])
 
     def _batch_norm(self, m: BatchNorm2d, pieces: List[torch.Tensor],
-                    devices: List[torch.device]) -> List[torch.Tensor]:
+                    devices: List[torch.device], group=None) -> List[torch.Tensor]:
         """BatchNorm of a tensor in pieces: per piece with the running
-        statistics in eval; over every piece in training, the running
-        statistics updated once on the model's copy (not while a
-        checkpoint recomputes)."""
+        statistics in eval; in training over every piece and the pieces of
+        ``group``'s other ranks, the running statistics updated once on the
+        model's copy (not while a checkpoint recomputes)."""
         if not (m.training and m.track_running_stats):
             return [self.rep(m, dev)(t) for t, dev in zip(pieces, devices)]
-        if m.group is not None:
-            raise NotImplementedError("banded BatchNorm over a process group")
         reps = [self.rep(m, dev) for dev in devices]
         n = len(pieces)
-        outs = _BandBatchNorm.apply(m.eps, n, *pieces, *[r.weight for r in reps],
-                                    *[r.bias for r in reps])
+        traffic = None if self.ranks is None else self.ranks.traffic
+        outs = _BandBatchNorm.apply(m.eps, n, group, traffic, *pieces,
+                                    *[r.weight for r in reps], *[r.bias for r in reps])
         ys, mean, var = list(outs[:n]), outs[n], outs[n + 1]
         if not m.recomputing:
             f = m._factor()
@@ -511,21 +754,22 @@ class SpatialModel:
     def dropout(self, m: nn.Dropout, x: Bands) -> Bands:
         """The unsharded module's draw: a mask for the whole tensor from the
         home device's generator (``F.dropout`` of ones in the activation's
-        type and layout), sliced per band."""
+        type and layout), sliced per band.  Across ranks the whole tensor is
+        the data group's slice, and the image's ranks draw one mask from
+        generators seeded alike (the trainer seeds them by data group)."""
         if not m.training or m.p == 0.0:
             return x
         first = x.parts[0][0]
         shape = x.shape
-        ones = torch.ones(shape, dtype=first.dtype, device=self.home)
-        if first.dim() == 4 and first.stride(1) == 1 and first.shape[1] > 1:  # channels last
-            ones = ones.contiguous(memory_format=torch.channels_last)
+        ones = torch.ones(shape, dtype=first.dtype, device=self.home).contiguous(
+            memory_format=_layout(first))
         mask = F.dropout(ones, m.p, True)
         parts, n0 = [], 0
         for ts, ds in zip(x.parts, x.devices):
             nb = ts[0].shape[0]
             rows = mask.narrow(0, n0, nb)
             parts.append([t * rows.narrow(x.dim, a, b - a).to(dev)
-                          for t, dev, (a, b) in zip(ts, ds, x.bounds)])
+                          for t, dev, (a, b) in zip(ts, ds, x.local_bounds)])
             n0 += nb
         return x.like(parts)
 
@@ -548,8 +792,8 @@ class SpatialModel:
         results, i, count = [], 0, len(flat)
         for height, dim in meta["out"]:
             pieces = list(out[i:i + count])
-            results.append(Bands([pieces[j:j + shards] for j in range(0, count, shards)],
-                                 x.devices, height, dim))
+            results.append(x.like([pieces[j:j + shards] for j in range(0, count, shards)],
+                                  height, dim))
             i += count
         return tuple(results) if len(results) > 1 else results[0]
 
@@ -607,10 +851,12 @@ class SpatialModel:
         return self.dropout(aspp.dropout, self.conv_bn_relu(aspp.conv, cat))
 
     def image_pool(self, aspp: ASPP, x: Bands, like: Bands) -> Bands:
-        """ASPP's image pooling: per data shard, the bands' f32 sums added in
-        band order over H * W, the 1x1 ConvBNReLU on the pooled vectors
-        (BatchNorm over every data shard's), then each band's rows of the
-        align-corners upsample of a 1x1 map (constant)."""
+        """ASPP's image pooling: per data shard, the bands' sums (in at least
+        f32) added in band order over H * W, the 1x1 ConvBNReLU on the
+        pooled vectors (BatchNorm over every data shard's), then each band's
+        rows of the align-corners upsample of a 1x1 map (constant).  Across
+        ranks the sums all-reduce over the image's ranks, and the BatchNorm
+        over the ranks of this band index (each image once)."""
         conv = aspp.global_avg_pool[1]
         width = x.shape[-1]
         pooled, homes = [], []
@@ -618,18 +864,22 @@ class SpatialModel:
             home = ds[0]
             total = None
             for t in ts:
-                part = t.float().sum((2, 3), keepdim=True).to(home)
+                part = t.to(torch.promote_types(t.dtype, torch.float32)).sum(
+                    (2, 3), keepdim=True).to(home)
                 total = part if total is None else total + part
+            if self.ranks is not None:
+                total = _AllReduce.apply(total, self.ranks.spatial, self.ranks.traffic)
             pooled.append((total / float(x.height * width)).to(ts[0].dtype))
             homes.append(home)
         pooled = [self.rep(conv.conv, dev)(t) for t, dev in zip(pooled, homes)]
         if conv.bn is not None:
-            pooled = self._batch_norm(conv.bn, pooled, homes)
+            pooled = self._batch_norm(conv.bn, pooled, homes,
+                                      None if self.ranks is None else self.ranks.data_group)
         if conv.relu:
             pooled = [F.relu(t) for t in pooled]
         w_out = like.shape[-1]
         return like.like([[resize_nchw(p.to(dev), (b - a, w_out))
-                           for dev, (a, b) in zip(ds, like.bounds)]
+                           for dev, (a, b) in zip(ds, like.local_bounds)]
                           for p, ds in zip(pooled, like.devices)])
 
     def decoder(self, dec: Decoder, feature: Bands, low_level: Bands) -> Bands:

@@ -28,7 +28,9 @@ is nothing to jit; each maps to a ``group=`` form here:
     spatial_axis, steps_axis)`` -> ``make_spatial_train_step(num_classes,
     mesh, data_axis, spatial_axis, steps=K, ...)``, and
     ``jit_spatial_eval_step`` -> ``make_spatial_eval_step``: one process
-    over the mesh's devices, not a process group.
+    over the mesh's devices, or, with ``group=world.spatial_groups(S)``,
+    bands across the ranks of a process group (rank r holds band ``r % S``
+    of data group ``r // S``).
 
 After a local backward, one all-reduce sums the gradients with the loss
 and the confusion (per-device steps: the running statistics too), and every
@@ -64,7 +66,7 @@ import torch.nn as nn
 from ..models.layers import checkpointed, global_batch_statistics
 from ..models.loss import cross_entropy_loss, cross_entropy_sum_count
 from ..models.metrics import confusion_matrix_update
-from .distributed import all_reduce_
+from .distributed import SpatialGroups, all_reduce_
 from .mesh import Mesh
 from .spatial_infer import Bands, SpatialModel
 
@@ -328,13 +330,16 @@ def make_eval_step(num_classes: int, ignore_index: int = 255,
     return eval_step
 
 
-def _spatial_engine(cache: dict, model: nn.Module, mesh: Mesh, data_axis: Optional[str],
-                    spatial_axis: str) -> SpatialModel:
-    """The banded forward of ``model`` over ``mesh``, built once a model."""
+def _spatial_engine(cache: dict, model: nn.Module, mesh: Optional[Mesh],
+                    data_axis: Optional[str], spatial_axis: str,
+                    group: Optional[SpatialGroups]) -> SpatialModel:
+    """The banded forward of ``model`` over ``mesh`` (or ``group``'s ranks),
+    built once a model."""
     key = id(model)
     if key not in cache:
         cache.clear()
-        cache[key] = SpatialModel(model, mesh, spatial_axis=spatial_axis, data_axis=data_axis)
+        cache[key] = SpatialModel(model, mesh, spatial_axis=spatial_axis, data_axis=data_axis,
+                                  ranks=group)
     return cache[key]
 
 
@@ -349,9 +354,12 @@ def _spatial_logits(engine: SpatialModel, image: torch.Tensor, remat: bool,
 
 
 def spatial_loss(logits: Bands, labels: Bands, num_classes: int, ignore_index: int,
-                  home: torch.device):
+                  home: torch.device, group: Optional[SpatialGroups] = None):
     """The mean cross entropy over the counted pixels of every band and the
-    confusion: per-band sums added in mesh order on ``home``."""
+    confusion: per-band sums added in mesh order on ``home``.  With
+    ``group`` (bands across ranks) the count is summed over the world: the
+    loss is this band's share of the global batch's mean, and the
+    confusion this band's counts; summed over ranks, they are the whole."""
     total = count = confusion = None
     for lg, lb in zip(logits.shards, labels.shards):
         t, c = cross_entropy_sum_count(lg, lb, ignore_index=ignore_index)
@@ -360,6 +368,9 @@ def spatial_loss(logits: Bands, labels: Bands, num_classes: int, ignore_index: i
         total = t if total is None else total + t
         count = c if count is None else count + c
         confusion = cm if confusion is None else confusion + cm
+    if group is not None:
+        with group.traffic.record("all_reduce", home):
+            dist.all_reduce(count, group=group.world.group)
     return total / count.clamp_min(1e-12), confusion
 
 
@@ -371,7 +382,7 @@ def _check_micro(micro: int, engine: SpatialModel) -> None:
 
 def make_spatial_train_step(
     num_classes: int,
-    mesh: Mesh,
+    mesh: Optional[Mesh],
     data_axis: Optional[str] = "data",
     spatial_axis: str = "spatial",
     steps: int = 1,
@@ -381,6 +392,7 @@ def make_spatial_train_step(
     remat: bool = False,
     accum_steps: int = 1,
     compute_dtype: torch.dtype = torch.float32,
+    group: Optional[SpatialGroups] = None,
 ) -> Step:
     """The train step with image rows banded over ``mesh[spatial_axis]``
     and the batch over ``mesh[data_axis]`` (None: a pure-spatial mesh), the
@@ -398,12 +410,22 @@ def make_spatial_train_step(
     onto the model's in mesh order.  The other arguments are
     :func:`make_train_step`'s; ``steps`` > 1 takes a ``(steps, B, ...)``
     stacked batch (JAX's ``steps_axis=True``).
+
+    ``group`` (``World.spatial_groups(S)``; ``mesh`` None): bands across
+    the ranks of a process group.  ``batch`` is this rank's data group's
+    slice of the global batch, every row; the step keeps its band's rows.
+    Halos move between the image's ranks, BatchNorm's sums and the loss's
+    count are all-reduced over the world, and after the micro-batches one
+    flat all-reduce sums the gradients (each band's a partial sum), the
+    loss and the confusion, so every rank applies the same update from the
+    parameters broadcast at the start.  At the end of the step the ranks
+    check that they made the same number of collective calls.
     """
     engines: dict = {}
 
     def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
-        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis)
+        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis, group)
         model.train()
         engine.sync()
         saved = [b.clone() for b in _bn_buffers(model)] if freeze_bn_stats else None
@@ -418,13 +440,16 @@ def make_spatial_train_step(
         for i in range(accum_steps):
             logits = _spatial_logits(engine, image[i * micro : (i + 1) * micro], remat,
                                      compute_dtype)
-            labels = Bands.split(label[i * micro : (i + 1) * micro], engine.groups, 1)
-            loss, cm = spatial_loss(logits, labels, num_classes, ignore_index, engine.home)
+            labels = engine.split(label[i * micro : (i + 1) * micro], 1)
+            loss, cm = spatial_loss(logits, labels, num_classes, ignore_index, engine.home, group)
             loss.backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             confusion = cm if confusion is None else confusion + cm
         engine.reduce_grads()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if group is not None:
+            all_reduce_(grads + [loss_sum, confusion], group.world.group)
+            group.check_calls()
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
         _clip_(grads, max_grad_norm)
@@ -438,22 +463,29 @@ def make_spatial_train_step(
     return _stacked(train_step, steps) if steps > 1 else train_step
 
 
-def make_spatial_eval_step(num_classes: int, mesh: Mesh, data_axis: Optional[str] = "data",
-                           spatial_axis: str = "spatial", ignore_index: int = 255,
-                           compute_dtype: torch.dtype = torch.float32):
+def make_spatial_eval_step(num_classes: int, mesh: Optional[Mesh],
+                           data_axis: Optional[str] = "data", spatial_axis: str = "spatial",
+                           ignore_index: int = 255,
+                           compute_dtype: torch.dtype = torch.float32,
+                           group: Optional[SpatialGroups] = None):
     """Validation step with image rows banded over ``mesh[spatial_axis]``
     (JAX ``jit_spatial_eval_step``): the banded forward with the running
     statistics, the loss and the confusion as in
     :func:`make_spatial_train_step`, no updates.  A batch that does not
     split over the data axis is padded with copies of its first image
     labelled ``ignore_index`` (the JAX trainer's padding), which change
-    neither the loss nor the confusion."""
+    neither the loss nor the confusion.
+
+    ``group``: bands across ranks, ``batch`` this rank's data group's slice
+    (the distributed loader pads a remainder batch to the data groups with
+    ignored copies); one all-reduce sums the loss shares and the confusion.
+    """
     engines: dict = {}
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
-        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis)
+        engine = _spatial_engine(engines, model, mesh, data_axis, spatial_axis, group)
         pad = -batch["image"].shape[0] % len(engine.groups)
         if pad:
             label = batch["label"]
@@ -468,8 +500,12 @@ def make_spatial_eval_step(num_classes: int, mesh: Mesh, data_axis: Optional[str
             logits = _spatial_logits(engine, batch["image"], False, compute_dtype)
         finally:
             model.train(was_training)
-        labels = Bands.split(batch["label"], engine.groups, 1)
-        loss, confusion = spatial_loss(logits, labels, num_classes, ignore_index, engine.home)
+        labels = engine.split(batch["label"], 1)
+        loss, confusion = spatial_loss(logits, labels, num_classes, ignore_index, engine.home,
+                                       group)
+        if group is not None:
+            all_reduce_([loss, confusion], group.world.group)
+            group.check_calls()
         return {"loss": loss, "confusion": confusion}
 
     return eval_step

@@ -34,6 +34,15 @@ def build_dataloader(cfg, mode: str = "train", distributed: bool = False) -> Dat
     batch padded with ignored samples (``DataLoader``'s ``rank``/``world``/
     ``micro``).  The JAX package instead gives each host a strided shard of
     the dataset and a batch of its own.
+
+    With ``TRAIN.SPATIAL_SHARDS`` S > 1 (bands across ranks) the slices are
+    the data groups': rank r decodes data group ``r // S``'s, so the S ranks
+    of an image decode the same images (the JAX package's per-process shard
+    would give one image's bands to processes that loaded different
+    images).  Each sample's transforms draw from a generator seeded by
+    (``RNG_SEED``, epoch, index) (``DataLoader``'s ``sample_seed``), so
+    the S ranks crop and flip an image alike whatever their worker threads'
+    order.
     """
     if mode == "train":
         batch_size = cfg.TRAIN.BATCH_SIZE
@@ -60,13 +69,15 @@ def build_dataloader(cfg, mode: str = "train", distributed: bool = False) -> Dat
         raise NotImplementedError(f"Unsupported dataset: {name}")
 
     is_train = mode == "train"
+    bands = max(1, int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1))) if distributed else 1
     return DataLoader(
         dataset,
         batch_size=batch_size,
         shuffle=is_train,
         drop_last=is_train and cfg.DATALOADER.DROP_LAST,
         num_workers=cfg.DATALOADER.NUM_WORKERS,
-        rank=rank() if distributed else 0,
-        world=world() if distributed else 1,
+        rank=rank() // bands if distributed else 0,
+        world=world() // bands if distributed else 1,
         micro=max(1, int(getattr(cfg.TRAIN, "GRAD_ACCUM_STEPS", 1))) if is_train else 1,
+        sample_seed=max(0, int(cfg.RNG_SEED)) if bands > 1 else None,
     )

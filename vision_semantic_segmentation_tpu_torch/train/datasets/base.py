@@ -19,15 +19,23 @@ remainder batch is padded to a multiple of ``world`` with copies of its
 first sample whose labels are all ``PAD_LABEL`` (JAX
 ``Trainer._pad_batch``): no loss and no confusion, only the training
 BatchNorm statistics see them.
+
+``sample_seed`` gives each sample's transforms a generator of its own,
+seeded by (``sample_seed``, epoch, dataset index): a sample draws the same
+scales, crops and flips on every rank and whatever thread decodes it.
+Without it the transforms draw from Python's ``random``, in the order the
+worker threads reach it.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import os
 import os.path as osp
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ..transforms import sample_random
 
 PAD_LABEL = 255
 
@@ -66,6 +74,7 @@ class DataLoader:
         rank: int = 0,
         world: int = 1,
         micro: int = 1,
+        sample_seed: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -77,6 +86,7 @@ class DataLoader:
         self.rank = rank
         self.world = world
         self.micro = micro
+        self.sample_seed = sample_seed
         self.epoch = 0
         self._rng = np.random.default_rng(seed)
 
@@ -110,11 +120,18 @@ class DataLoader:
         if self.num_workers > 0:
             with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
                 for batch_idx, pads in batches:
-                    samples = list(pool.map(self.dataset.__getitem__, batch_idx))
+                    samples = list(pool.map(self._sample, batch_idx))
                     yield _collate(_padded(samples, pads))
         else:
             for batch_idx, pads in batches:
-                yield _collate(_padded([self.dataset[i] for i in batch_idx], pads))
+                yield _collate(_padded([self._sample(i) for i in batch_idx], pads))
+
+    def _sample(self, index: int) -> Dict[str, np.ndarray]:
+        if self.sample_seed is None:
+            return self.dataset[index]
+        seed = np.random.SeedSequence([self.sample_seed, self.epoch, int(index)])
+        with sample_random(int(seed.generate_state(1)[0])):
+            return self.dataset[index]
 
     def _rank_slice(self, batch_idx: np.ndarray):
         """This rank's slice of a global batch, and how many of its last

@@ -34,13 +34,19 @@ with f32 parameters.
 (``make_spatial_train_step``, ``parallel/spatial_infer.py``) on a
 ``(data, spatial)`` mesh of ``devices`` (default every local device of
 ``device``'s type; a device may repeat): S must divide their count, and the
-data axis shrinks to a divisor of the batch, as in the JAX trainer.  Its
-refusals are the JAX trainer's: per-device BatchNorm statistics
-(``MODEL.SYNC_BN`` False over more than one data shard, unfrozen) and
-``TRAIN.DEVICE_AUGMENT`` raise ``NotImplementedError``, and a crop height
-that does not divide by S or lies below ``OUTPUT_STRIDE`` x S raises
-``ValueError``.  Bands across the ranks of ``distributed=True`` are not
-ported (ROADMAP).
+data axis shrinks to a divisor of the batch, as in the JAX trainer.  With
+``distributed=True`` the bands lie across the ranks instead (the JAX
+trainer's ``('data', 'spatial')`` mesh over every process's devices): rank
+r holds band ``r % S`` of data group ``r // S``, S must divide the world,
+each data group's ranks decode the same slice of the global batch
+(``build_dataloader``), and their dropout and augmentation generators are
+seeded by data group, so the S ranks of an image draw alike.  The
+refusals are the JAX trainer's, each raised on every rank before the
+first collective: per-device BatchNorm statistics (``MODEL.SYNC_BN`` False
+over more than one data shard, unfrozen) and ``TRAIN.DEVICE_AUGMENT`` raise
+``NotImplementedError``; S not dividing the devices or ranks, a batch that
+does not split over the data shards, and a crop height that does not divide
+by S or lies below ``OUTPUT_STRIDE`` x S raise ``ValueError``.
 
 ``tensorboard=True`` (with an ``output_dir``) writes the epoch's training
 meters and the validation loss and mIoU as TensorBoard scalars through
@@ -86,9 +92,6 @@ from .prefetch import stage_batch
 from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_SPATIAL_RANKS = (
-    "TRAIN.SPATIAL_SHARDS > 1 with distributed=True (row bands across the ranks of a "
-    "process group) is not ported: see ROADMAP; train spatially sharded in one process")
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -112,11 +115,10 @@ class Trainer:
                 without one.  ``device`` ``cuda`` is then ``cuda:LOCAL_RANK``.
             devices: the mesh of ``TRAIN.SPATIAL_SHARDS`` > 1 (a device may
                 repeat); default every local device of ``device``'s type.
-                The model and optimizer stay on ``device``.
+                The model and optimizer stay on ``device``.  Not used with
+                ``distributed`` (the bands lie across the ranks).
         """
         spatial = max(1, int(getattr(cfg.TRAIN, "SPATIAL_SHARDS", 1)))
-        if spatial > 1 and distributed:
-            raise NotImplementedError(_SPATIAL_RANKS)
         self.cfg = cfg
         self.output_dir = output_dir
         self.logger = logger
@@ -124,23 +126,61 @@ class Trainer:
         self.device = self.world.device if distributed else resolve_device(device)
         self.rank = self.world.rank if distributed else 0
         ranks = self.world.size if distributed else 1
-        if cfg.TRAIN.BATCH_SIZE % ranks:
+        accum = max(1, int(getattr(cfg.TRAIN, "GRAD_ACCUM_STEPS", 1)))
+        # TRAIN.DEVICE_AUGMENT: the random scale/crop/flip/normalize chain
+        # runs on the card; the loader feeds raw uint8 batches
+        self._device_augment = device_augment_from_cfg(cfg)
+        # every refusal below comes before the first collective, on every rank
+        self.mesh = self._groups = None
+        self._spatial, self._data_size, self._min_spatial_h = 1, ranks, 0
+        if spatial > 1 and distributed:
+            # bands across ranks: rank r holds band r % S of data group r // S
+            if ranks % spatial:
+                raise ValueError(f"TRAIN.SPATIAL_SHARDS={spatial} does not divide the world of "
+                                 f"{ranks} ranks")
+            self._data_size = ranks // spatial
+            if cfg.TRAIN.BATCH_SIZE % self._data_size:
+                raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} does not split over "
+                                 f"{self._data_size} data groups ({ranks} ranks / {spatial} "
+                                 "spatial shards)")
+        elif cfg.TRAIN.BATCH_SIZE % ranks:
             raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} does not split over "
                              f"{ranks} ranks: launch a number of ranks that divides it")
-        # TRAIN.SPATIAL_SHARDS: a (data, spatial) mesh, image rows banded over
-        # the spatial axis, the batch over what devices remain
-        self.mesh = None
-        self._spatial, self._data_size, self._min_spatial_h = 1, ranks, 0
-        if spatial > 1:
+        elif spatial > 1:
+            # a (data, spatial) mesh, image rows banded over the spatial
+            # axis, the batch over what devices remain
             devs = list(devices) if devices is not None else local_devices(self.device.type)
             if len(devs) % spatial:
                 raise ValueError(f"TRAIN.SPATIAL_SHARDS={spatial} does not divide the device "
                                  f"count {len(devs)}")
-            n_use = _largest_divisor(cfg.TRAIN.BATCH_SIZE, len(devs) // spatial)
-            self.mesh = create_mesh((n_use, spatial), ("data", "spatial"),
-                                    devices=devs[:n_use * spatial])
-            self._spatial, self._data_size = spatial, n_use
+            self._data_size = _largest_divisor(cfg.TRAIN.BATCH_SIZE, len(devs) // spatial)
+            self.mesh = create_mesh((self._data_size, spatial), ("data", "spatial"),
+                                    devices=devs[:self._data_size * spatial])
+        if spatial > 1:
+            self._spatial = spatial
             self._min_spatial_h = int(getattr(cfg.MODEL, "OUTPUT_STRIDE", 1)) * spatial
+            if self._data_size > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM:
+                raise NotImplementedError(
+                    "TRAIN.SPATIAL_SHARDS > 1 requires the SyncBN train step (MODEL.SYNC_BN="
+                    "True, a single-data-device mesh, or TRAIN.FREEZE_BATCHNORM=True); "
+                    "per-device BN statistics are undefined for spatially-split images")
+            if self._device_augment is not None:
+                raise NotImplementedError(
+                    "TRAIN.DEVICE_AUGMENT composes with data parallelism only; with "
+                    "TRAIN.SPATIAL_SHARDS > 1 feed host-side augmented fixed-shape crops "
+                    "(TRAIN.AUGMENTATION)")
+        parts = self._data_size if distributed else 1
+        if accum > 1 and cfg.TRAIN.BATCH_SIZE % (accum * parts):
+            # each rank (data group) takes its part of each micro-batch
+            unit = "ranks" if spatial == 1 else "data groups"
+            raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} is not divisible "
+                             f"by TRAIN.GRAD_ACCUM_STEPS={accum}"
+                             + (f" x {parts} {unit}" if parts > 1 else ""))
+        if spatial > 1 and distributed:
+            self._groups = self.world.spatial_groups(spatial)
+        # the generators' seed index: a rank's own, or its data group's (the
+        # S ranks of an image draw the same dropout mask)
+        self._stream = self.rank // spatial
 
         seed = set_random_seed(cfg.RNG_SEED)
         seed = 0 if seed is None else seed  # RNG_SEED < 0: unseeded (ref torch_util.py:7-16)
@@ -167,34 +207,15 @@ class Trainer:
 
         num_classes = cfg.DATASET.NUM_CLASSES
         self._steps_per_dispatch = max(1, int(getattr(cfg.TRAIN, "STEPS_PER_DISPATCH", 1)))
-        accum = max(1, int(getattr(cfg.TRAIN, "GRAD_ACCUM_STEPS", 1)))
-        if accum > 1 and cfg.TRAIN.BATCH_SIZE % (accum * ranks):
-            # each rank takes its part of each micro-batch
-            raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} is not divisible "
-                             f"by TRAIN.GRAD_ACCUM_STEPS={accum}"
-                             + (f" x {ranks} ranks" if ranks > 1 else ""))
-        # TRAIN.DEVICE_AUGMENT: the random scale/crop/flip/normalize chain
-        # runs on the card; the loader feeds raw uint8 batches
-        self._device_augment = device_augment_from_cfg(cfg)
         # the JAX trainer's routing: per-rank BatchNorm statistics only when
         # asked for (SYNC_BN False), on more than one rank and unfrozen
         group = self.world.group if distributed else None
         per_device = ranks > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM
         if self._spatial > 1:
-            if self._data_size > 1 and not cfg.MODEL.SYNC_BN and not cfg.TRAIN.FREEZE_BATCHNORM:
-                raise NotImplementedError(
-                    "TRAIN.SPATIAL_SHARDS > 1 requires the SyncBN train step (MODEL.SYNC_BN="
-                    "True, a single-data-device mesh, or TRAIN.FREEZE_BATCHNORM=True); "
-                    "per-device BN statistics are undefined for spatially-split images")
-            if self._device_augment is not None:
-                raise NotImplementedError(
-                    "TRAIN.DEVICE_AUGMENT composes with data parallelism only; with "
-                    "TRAIN.SPATIAL_SHARDS > 1 feed host-side augmented fixed-shape crops "
-                    "(TRAIN.AUGMENTATION)")
             self._train_step = make_spatial_train_step(
                 num_classes, self.mesh, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
                 freeze_bn_stats=bool(cfg.TRAIN.FREEZE_BATCHNORM), remat=remat,
-                accum_steps=accum, compute_dtype=self.compute_dtype)
+                accum_steps=accum, compute_dtype=self.compute_dtype, group=self._groups)
         elif per_device:
             self._train_step = make_per_device_bn_train_step(
                 num_classes, group, max_grad_norm=cfg.OPTIMIZER.MAX_GRAD_NORM,
@@ -207,10 +228,15 @@ class Trainer:
                 accum_steps=accum, augment=self._device_augment,
                 compute_dtype=self.compute_dtype, group=group)
         self._eval_step = (
-            make_spatial_eval_step(num_classes, self.mesh, compute_dtype=self.compute_dtype)
+            make_spatial_eval_step(num_classes, self.mesh, compute_dtype=self.compute_dtype,
+                                   group=self._groups)
             if self._spatial > 1 else
             make_eval_step(num_classes, compute_dtype=self.compute_dtype, group=group))
-        if self._spatial > 1:
+        if self._groups is not None:
+            self._log(f"spatial: {self._data_size} data groups x {self._spatial} bands across "
+                      f"{ranks} ranks (rank r: band r % {self._spatial} of data group "
+                      f"r // {self._spatial}), halos over {self._groups.backend}")
+        elif self._spatial > 1:
             self._log(f"spatial: {self._data_size} data x {self._spatial} spatial shards over "
                       f"{', '.join(str(d) for d in self.mesh.devices.flat)}")
         if distributed:
@@ -230,9 +256,10 @@ class Trainer:
     def _seed_rank(self, step: int) -> None:
         """Seed this rank's host, dropout and augmentation generators for
         ``step``: rank 0 at step 0 with the run's seed (as on one device),
-        every other rank with its own (``rank_seed``)."""
-        seed = rank_seed(self._seed, self.rank, step)
-        if self.rank or step:  # rank 0 at step 0 was seeded with the run's seed
+        every other rank with its own (``rank_seed``); with bands across
+        ranks, by data group instead of rank."""
+        seed = rank_seed(self._seed, self._stream, step)
+        if self._stream or step:  # stream 0 at step 0 was seeded with the run's seed
             set_random_seed(seed)
         self.state.generator.manual_seed(seed + 1)
 
@@ -312,7 +339,9 @@ class Trainer:
                     "must read the same checkpoint, so OUTPUT_DIR must lie on storage "
                     "that all ranks share")
             broadcast_module_(self.model, group=self.world.group)
-            if self.rank:  # the file holds rank 0's generators
+            # the file holds rank 0's generators; an image's ranks reseed alike
+            # by data group, rank 0 with them
+            if self.rank or self._groups is not None:
                 self._seed_rank(self.state.step)
         if "best_metric" in extras:
             self.best_metric = float(extras["best_metric"])

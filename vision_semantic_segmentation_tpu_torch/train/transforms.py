@@ -4,7 +4,9 @@ Port of ``vision_semantic_segmentation_tpu/train/transforms.py`` (ref
 data/transforms.py:16-424), on numpy and PyTorch instead of PIL images: a
 sample is ``{"image": (H, W, 3) uint8, "label": (H, W) uint8}`` until
 ``ToTensor``.  Randomness is Python's ``random`` module, as in the JAX
-package, so one seed draws the same scales, crops and flips in both.
+package, so one seed draws the same scales, crops and flips in both;
+inside ``sample_random`` a thread's transforms draw from a generator of
+their own instead (the loader's per-sample seeds).
 
 Resampling follows Pillow's, which the JAX package uses:
 
@@ -25,9 +27,11 @@ NCHW tensors of them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import numbers
 import random
+import threading
 import warnings
 from typing import Dict, Tuple
 
@@ -36,6 +40,25 @@ import torch
 import torch.nn.functional as F
 
 Sample = Dict[str, np.ndarray]
+
+_SAMPLE = threading.local()
+
+
+def _random():
+    """What this thread's transforms draw from: the sample's generator
+    inside ``sample_random``, else Python's ``random`` module."""
+    return getattr(_SAMPLE, "rng", None) or random
+
+
+@contextlib.contextmanager
+def sample_random(seed: int):
+    """Draw this thread's transforms from ``random.Random(seed)``: one
+    sample's draws, the same in whatever thread or order it is decoded."""
+    _SAMPLE.rng = random.Random(seed)
+    try:
+        yield
+    finally:
+        _SAMPLE.rng = None
 
 
 class Compose:
@@ -141,7 +164,7 @@ class RandomHorizontalFlip:
         self.prob = p
 
     def __call__(self, sample: Sample) -> Sample:
-        if random.random() < self.prob:
+        if _random().random() < self.prob:
             return {"image": np.ascontiguousarray(sample["image"][:, ::-1]),
                     "label": np.ascontiguousarray(sample["label"][:, ::-1])}
         return sample
@@ -175,7 +198,7 @@ class RandomRotate:
             self.degrees = tuple(degrees)
 
     def __call__(self, sample: Sample) -> Sample:
-        angle = random.uniform(*self.degrees)
+        angle = _random().uniform(*self.degrees)
         return {"image": _rotate(sample["image"], angle, "bilinear"),
                 "label": _rotate(sample["label"], angle, "nearest")}
 
@@ -214,11 +237,11 @@ class RandomCrop:
 
         if centroid is not None:
             c_x, c_y = centroid
-            x1 = min(w - tw, max(0, random.randint(c_x - tw, c_x)))
-            y1 = min(h - th, max(0, random.randint(c_y - th, c_y)))
+            x1 = min(w - tw, max(0, _random().randint(c_x - tw, c_x)))
+            y1 = min(h - th, max(0, _random().randint(c_y - th, c_y)))
         else:
-            x1 = 0 if w == tw else random.randint(0, w - tw)
-            y1 = 0 if h == th else random.randint(0, h - th)
+            x1 = 0 if w == tw else _random().randint(0, w - tw)
+            y1 = 0 if h == th else _random().randint(0, h - th)
         return {"image": _crop(image, x1, y1, x1 + tw, y1 + th),
                 "label": _crop(label, x1, y1, x1 + tw, y1 + th)}
 
@@ -239,7 +262,7 @@ class RandomSizeAndCrop:
         if _wh(image) != _wh(label):
             raise ValueError("image and label sizes differ")
         scale_amt = 1.0 if self.pre_size is None else self.pre_size / min(_wh(image))
-        scale_amt *= random.uniform(*self.scale)
+        scale_amt *= _random().uniform(*self.scale)
         w, h = [int(i * scale_amt) for i in _wh(image)]
         if centroid is not None:
             centroid = [int(c * scale_amt) for c in centroid]
