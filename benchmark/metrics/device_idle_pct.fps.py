@@ -1,0 +1,7 @@
+"""Share of the traced part of the window in which no kernel, copy or
+memset ran on the card (the union of their intervals), in %."""
+from benchmark.core.readings import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
