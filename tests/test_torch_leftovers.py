@@ -3,9 +3,10 @@
 ``utils/pcd_bev.py`` (ASCII and binary ``.pcd`` round trips, the BEV
 image), ``utils/images.py``, ``train/datasets/visualization.py``,
 ``utils/file_io.py``, ``ops/colormap.py::load_palette_from_dataset_config``,
-``evaluation/compare.py::compare_maps`` and ``utils/benchmark.py`` run on
-the same seeded inputs in both packages on the CPU.  Every output is host
-numpy, strings or files and is held equal.
+and ``evaluation/compare.py::compare_maps`` run on the same seeded inputs
+in both packages on the CPU.  Every output is host numpy, strings or files
+and is held equal.  ``utils/benchmark.py``'s spans, trace and cProfile
+decorator are the port's own and are checked alone.
 """
 import json
 import os
@@ -18,7 +19,6 @@ import torch
 from vision_semantic_segmentation_tpu.evaluation import compare as j_compare
 from vision_semantic_segmentation_tpu.ops import colormap as j_colormap
 from vision_semantic_segmentation_tpu.train.datasets import visualization as j_vis
-from vision_semantic_segmentation_tpu.utils import benchmark as j_benchmark
 from vision_semantic_segmentation_tpu.utils import file_io as j_file_io
 from vision_semantic_segmentation_tpu.utils import images as j_images
 from vision_semantic_segmentation_tpu.utils import pcd_bev as j_pcd_bev
@@ -193,32 +193,24 @@ def test_compare_maps(rng, tmp_path):
 
 
 def test_timers(tmp_path, capsys):
-    timer, j_timer = benchmark.StageTimer(), j_benchmark.StageTimer()
-    for t in (timer, j_timer):
-        t.totals, t.counts = {"decode": 0.5, "forward": 1.25, "fold": 0.0625}, {
-            "decode": 2, "forward": 5, "fold": 1}
-    assert timer.summary() == j_timer.summary()
-    with timer.stage("fold", block_on=torch.ones(3)):
-        pass
-    with timer.stage("new"):
-        pass
-    assert timer.counts == {"decode": 2, "forward": 5, "fold": 2, "new": 1}
+    """The port's profiling helpers (the JAX package's timers are not
+    ported): ``span`` is a range of a ``trace`` around the ops it covers,
+    the shared no-op with no profiler running; ``profile`` prints
+    cProfile's table."""
+    with benchmark.trace(str(tmp_path / "trace")) as prof:
+        with benchmark.span("pipeline.window"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64))
+    assert prof is not None
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    window = next(e for e in events if e.get("name") == "pipeline.window")
+    matmul = next(e for e in events if e.get("name") == "aten::matmul")
+    assert window["cat"] == "user_annotation"
+    assert window["ts"] <= matmul["ts"]
+    assert matmul["ts"] + matmul["dur"] <= window["ts"] + window["dur"]
+    assert benchmark.span("pipeline.window") is benchmark.span("train.step")
 
-    @benchmark.device_timer
-    def work(n):
-        return {"a": torch.arange(n), "b": [torch.ones(2)]}
-
-    @benchmark.timer
     def host(n):
         return n + 1
 
-    assert work(4)["a"].tolist() == [0, 1, 2, 3] and host(1) == 2
-    out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("work took ") and out[0].endswith("s (device)")
-    assert out[1].startswith("host took ")
-    with benchmark.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    assert prof is not None
-    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    assert any("matmul" in e.get("name", "") for e in events)
     assert benchmark.profile(host)(2) == 3
+    assert "function calls" in capsys.readouterr().out

@@ -66,6 +66,7 @@ import torch.nn as nn
 from ..models.layers import checkpointed, global_batch_statistics
 from ..models.loss import cross_entropy_loss, cross_entropy_sum_count
 from ..models.metrics import confusion_matrix_update
+from ..utils.benchmark import span
 from .distributed import SpatialGroups, all_reduce_
 from .mesh import Mesh
 from .spatial_infer import Bands, SpatialModel
@@ -138,9 +139,10 @@ def _clip_(grads: List[torch.Tensor], max_grad_norm: float) -> None:
 
 
 def _update(state: TrainState) -> None:
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with span("train.update"):
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
 
 
 def make_train_step(
@@ -200,10 +202,13 @@ def make_train_step(
             img = _nchw(image[i * micro : (i + 1) * micro])
             lab = label[i * micro : (i + 1) * micro]
             with (global_batch_statistics(model, group) if sync else contextlib.nullcontext()):
-                logits = _forward(model, img, remat, compute_dtype)
-                loss = (cross_entropy_loss(logits, lab, ignore_index=ignore_index)
-                        if group is None else _global_mean_loss(logits, lab, ignore_index, group))
-                loss.backward()
+                with span("train.forward"):
+                    logits = _forward(model, img, remat, compute_dtype)
+                    loss = (cross_entropy_loss(logits, lab, ignore_index=ignore_index)
+                            if group is None
+                            else _global_mean_loss(logits, lab, ignore_index, group))
+                with span("train.backward"):
+                    loss.backward()
             cm = confusion_matrix_update(logits.detach(), lab, num_classes)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             confusion = cm if confusion is None else confusion + cm
@@ -263,9 +268,11 @@ def make_per_device_bn_train_step(
         model.train()
         model.zero_grad(set_to_none=True)
         label = batch["label"]
-        logits = _forward(model, _nchw(batch["image"]), False, compute_dtype)
-        loss = cross_entropy_loss(logits, label, ignore_index=ignore_index)
-        loss.backward()
+        with span("train.forward"):
+            logits = _forward(model, _nchw(batch["image"]), False, compute_dtype)
+            loss = cross_entropy_loss(logits, label, ignore_index=ignore_index)
+        with span("train.backward"):
+            loss.backward()
         confusion = confusion_matrix_update(logits.detach(), label, num_classes)
         loss = loss.detach()
         grads = [p.grad for p in model.parameters() if p.grad is not None]

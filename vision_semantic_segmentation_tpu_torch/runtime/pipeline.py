@@ -31,6 +31,7 @@ from ..mapping.engine import SemanticMappingEngine
 from ..models.build import build_model
 from ..ops.resize import resize_area
 from ..ops.warp import undistort
+from ..utils.benchmark import span
 
 
 def network_to_channel_table(cfg, num_network_classes: int = 19) -> np.ndarray:
@@ -156,31 +157,34 @@ class FusedFramePipeline:
         """Fuse one raw frame into ``grid`` (in place); returns (grid, labels).
         ``params``: weights for this call (see :meth:`segment`)."""
         as_t = self.engine.as_tensor
-        frame_u8 = as_t(frame_u8, torch.uint8)
-        logits = self.segment(frame_u8, camera, params)
-        net_labels = torch.argmax(logits, dim=1)[0].to(torch.int32)
-        # the channel image stays at decoder resolution; the engine gathers
-        # with nearest-downscaled indices
-        table = self.channel_table
-        channel_img = table[torch.clamp(net_labels, 0, table.shape[0] - 1).long()]
-        pointwise = self._pointwise_for(
-            camera, frame_u8.shape[:2], pcd_frame_id == "velodyne"
-        )
-        pcd = as_t(pcd, torch.float32)
-        out = pointwise(
-            pcd, as_t(valid, torch.bool), channel_img,
-            as_t(position, torch.float32), as_t(quaternion, torch.float32),
-        )
-        weights = None
-        if self.confidence_weighting:
-            cell, cls, vis, upd, gy, gx = out
-            # softmax in f32: bf16 logits saturate near 1.0 and would
-            # quantise the evidence weights
-            conf = torch.softmax(logits.float(), dim=1).amax(dim=1)[0]
-            weights = conf[gy, gx]
-        else:
-            cell, cls, vis, upd = out
-        grid = self._apply_update(grid, cell, cls, pcd[3], upd, weights=weights)
+        with span("pipeline.segment"):
+            frame_u8 = as_t(frame_u8, torch.uint8)
+            logits = self.segment(frame_u8, camera, params)
+        with span("pipeline.project"):
+            net_labels = torch.argmax(logits, dim=1)[0].to(torch.int32)
+            # the channel image stays at decoder resolution; the engine
+            # gathers with nearest-downscaled indices
+            table = self.channel_table
+            channel_img = table[torch.clamp(net_labels, 0, table.shape[0] - 1).long()]
+            pointwise = self._pointwise_for(
+                camera, frame_u8.shape[:2], pcd_frame_id == "velodyne"
+            )
+            pcd = as_t(pcd, torch.float32)
+            out = pointwise(
+                pcd, as_t(valid, torch.bool), channel_img,
+                as_t(position, torch.float32), as_t(quaternion, torch.float32),
+            )
+            weights = None
+            if self.confidence_weighting:
+                cell, cls, vis, upd, gy, gx = out
+                # softmax in f32: bf16 logits saturate near 1.0 and would
+                # quantise the evidence weights
+                conf = torch.softmax(logits.float(), dim=1).amax(dim=1)[0]
+                weights = conf[gy, gx]
+            else:
+                cell, cls, vis, upd = out
+        with span("pipeline.update"):
+            grid = self._apply_update(grid, cell, cls, pcd[3], upd, weights=weights)
         return grid, net_labels
 
     def run_window(self, grid, frames: Mapping[str, object], camera: str = "camera1",
@@ -192,12 +196,13 @@ class FusedFramePipeline:
         Python loop over frames replaces the JAX package's ``lax.scan``; the
         grid is updated in place and never leaves the device.
         """
-        for i in range(len(frames["image"])):
-            grid, _ = self.step(
-                grid, frames["image"][i], frames["pcd"][i], frames["valid"][i],
-                frames["position"][i], frames["quaternion"][i],
-                camera=camera, pcd_frame_id=pcd_frame_id,
-            )
+        with span("pipeline.window"):
+            for i in range(len(frames["image"])):
+                grid, _ = self.step(
+                    grid, frames["image"][i], frames["pcd"][i], frames["valid"][i],
+                    frames["position"][i], frames["quaternion"][i],
+                    camera=camera, pcd_frame_id=pcd_frame_id,
+                )
         return grid
 
     def compile_sequence_runner(self, camera: str = "camera1",

@@ -81,6 +81,7 @@ from ..parallel.train_step import (
     make_train_step,
 )
 from ..runtime.replay import StagedWindow
+from ..utils.benchmark import span
 from ..utils.seed import set_random_seed
 from .augment import device_augment_from_cfg
 from .build import build_dataloader
@@ -92,6 +93,7 @@ from .prefetch import stage_batch
 from .tensorboard_util import add_scalars
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_END = object()  # the loader is spent
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -403,32 +405,41 @@ class Trainer:
             nonlocal inflight, end, iteration
             if inflight is None:
                 return
-            metrics, data_time, step = inflight
-            inflight = None
-            loss = float(metrics["loss"])
-            self.train_metric.merge(metrics["confusion"])
-            now = time.perf_counter()
-            batch_time, end = now - end, now
-            meters.update(loss=loss, data_time=data_time, batch_time=batch_time)
-            self.history.append({"epoch": epoch, "step": step, "loss": loss,
-                                 "data_time": data_time, "batch_time": batch_time})
-            if log_period and iteration % log_period == 0:
-                lr = self.state.optimizer.param_groups[0]["lr"]
-                self._log(f"Epoch[{epoch}] iter[{iteration}] lr {lr:.5f} {meters} "
-                          f"mIoU {self.train_metric.global_avg:.4f}")
-            iteration += 1
+            with span("train.drain"):
+                metrics, data_time, step = inflight
+                inflight = None
+                loss = float(metrics["loss"])
+                self.train_metric.merge(metrics["confusion"])
+                now = time.perf_counter()
+                batch_time, end = now - end, now
+                meters.update(loss=loss, data_time=data_time, batch_time=batch_time)
+                self.history.append({"epoch": epoch, "step": step, "loss": loss,
+                                     "data_time": data_time, "batch_time": batch_time})
+                if log_period and iteration % log_period == 0:
+                    lr = self.state.optimizer.param_groups[0]["lr"]
+                    self._log(f"Epoch[{epoch}] iter[{iteration}] lr {lr:.5f} {meters} "
+                              f"mIoU {self.train_metric.global_avg:.4f}")
+                iteration += 1
 
         skipped = 0
         t_wait = time.perf_counter()
-        for batch in dataloader:
-            if skipped < skip_steps:
-                skipped += 1
-                t_wait = time.perf_counter()
-                continue
-            if self._stop_requested():
-                break
-            data_time = time.perf_counter() - t_wait
-            metrics = self._train_step(self.state, self._on_device(batch, raw))
+        batches = iter(dataloader)
+        while True:
+            # the batch is taken inside the span, so the span covers the
+            # wait ``data_time`` measures
+            with span("train.fetch"):
+                batch = next(batches, _END)
+                if batch is _END:
+                    break
+                if skipped < skip_steps:
+                    skipped += 1
+                    t_wait = time.perf_counter()
+                    continue
+                if self._stop_requested():
+                    break
+                data_time = time.perf_counter() - t_wait
+            with span("train.step"):
+                metrics = self._train_step(self.state, self._on_device(batch, raw))
             drain()  # the previous step: the card already runs this one
             inflight = (metrics, data_time, self.state.step)
             t_wait = time.perf_counter()

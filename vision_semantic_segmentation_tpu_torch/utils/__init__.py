@@ -1,6 +1,6 @@
 from .file_io import get_dir_list, get_file_list, makedirs, move, remove
 from .logger import MyLogger, setup_logger
-from .benchmark import StageTimer, device_timer, profile, timer, trace
+from .benchmark import profile, span, trace
 from .markers import Marker, hull_markers, visualize_marker
 from .seed import set_random_seed
 from .ros_compat import TransformTree, create_point_cloud, pack_rgba, unpack_rgba
@@ -14,10 +14,8 @@ __all__ = [
     "remove",
     "MyLogger",
     "setup_logger",
-    "StageTimer",
-    "device_timer",
     "profile",
-    "timer",
+    "span",
     "trace",
     "set_random_seed",
     "Marker",

@@ -1,16 +1,17 @@
-"""Timing and profiling helpers.
+"""Profiling helpers: the program's spans, a profiler trace, cProfile.
 
 Port of ``vision_semantic_segmentation_tpu/utils/benchmark.py`` (ref
 src/network/core/utils/benchmark.py:4-25 and the cProfile decorator of
-src/utils/utils.py:17-32).
+src/utils/utils.py:17-32), with the JAX package's timers replaced by spans
+on the profiler's clock.
 
 PyTorch returns from a CUDA op before the card has run it, so a host clock
-around a call measures the enqueue.  :func:`device_timer` and
-``StageTimer.stage(block_on=...)`` synchronise the current CUDA stream of
-each CUDA tensor they are given before reading the clock (the JAX package
-blocks on its arrays); a CPU tensor needs nothing.  :func:`trace` records a
-``torch.profiler`` trace and writes it for Chrome's trace viewer (the JAX
-package wraps ``jax.profiler``).
+around a call measures the enqueue.  :func:`span` marks a phase of the
+program as a ``torch.profiler.record_function`` range, which lands in the
+same trace as the card's kernels, so the trace shows which phase the host
+was in while the card waited; with no profiler running it does nothing.
+:func:`trace` records a ``torch.profiler`` trace and writes it for
+Chrome's trace viewer (the JAX package wraps ``jax.profiler``).
 """
 from __future__ import annotations
 
@@ -22,53 +23,30 @@ import os
 import os.path as osp
 import pstats
 import tempfile
-import time
-from typing import Any, Callable, Optional
+from typing import Callable, ContextManager, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
 
-__all__ = ["timer", "device_timer", "profile", "trace", "StageTimer"]
+__all__ = ["span", "profile", "trace"]
 
-
-def _block(obj: Any) -> None:
-    """Wait for the current stream of the device of every CUDA tensor in ``obj``
-    (a tensor, or lists, tuples and dict values of them)."""
-    if isinstance(obj, torch.Tensor):
-        if obj.is_cuda:
-            torch.cuda.current_stream(obj.device).synchronize()
-    elif isinstance(obj, (list, tuple)):
-        for x in obj:
-            _block(x)
-    elif isinstance(obj, dict):
-        for x in obj.values():
-            _block(x)
+_NO_SPAN = contextlib.nullcontext()
 
 
-def timer(func: Callable) -> Callable:
-    """Decorator printing the wall-clock time of each call."""
+def span(name: str) -> ContextManager:
+    """A named range of the program on the profiler's clock.
 
-    @functools.wraps(func)
-    def wrapper(*args, **kwargs):
-        start = time.perf_counter()
-        result = func(*args, **kwargs)
-        print(f"{func.__name__} took {time.perf_counter() - start:.4f}s")
-        return result
-
-    return wrapper
-
-
-def device_timer(func: Callable) -> Callable:
-    """Like :func:`timer`, after the result's CUDA work has finished."""
-
-    @functools.wraps(func)
-    def wrapper(*args, **kwargs):
-        start = time.perf_counter()
-        result = func(*args, **kwargs)
-        _block(result)
-        print(f"{func.__name__} took {time.perf_counter() - start:.4f}s (device)")
-        return result
-
-    return wrapper
+    While a profiler records on this thread, ``torch.profiler.
+    record_function(name)``: a ``user_annotation`` event in the trace,
+    nested in the spans open around it.  Otherwise one shared no-op
+    context, so a span costs one flag check when nothing records (entering
+    ``record_function`` without a profiler costs about a hundred times
+    more).  Names are dotted, layer first (``replay.stage``,
+    ``pipeline.window``, ``train.step``).
+    """
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def profile(func: Callable) -> Callable:
@@ -105,29 +83,3 @@ def trace(log_dir: Optional[str] = None):
     with torch_profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(osp.join(log_dir, "trace.json"))
-
-
-class StageTimer:
-    """Accumulates wall-clock per named pipeline stage (host side)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on: Any = None):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                _block(block_on)
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - start
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name}: total {total:.4f}s over {n} calls ({total / n:.5f}s/call)")
-        return "\n".join(lines)
