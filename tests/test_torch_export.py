@@ -27,10 +27,12 @@ from vision_semantic_segmentation_tpu.runtime.pipeline import FusedFramePipeline
 from vision_semantic_segmentation_tpu_torch.__main__ import main
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.models import flax_to_state_dict
+from vision_semantic_segmentation_tpu_torch.ops import resize
 from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline
 from vision_semantic_segmentation_tpu_torch.runtime.export import (
     load_sequence_runner,
     export_sequence_runner,
+    trace_frame_step,
 )
 
 from test_torch_models import _randomize_bn
@@ -122,6 +124,24 @@ def test_program_holds_the_kernels_as_ops(exported):
     assert targets.count("vss_torch.evidence_fold_add.default") == 1
     assert not any("autograd" in t or "DepthwiseBranches" in t for t in targets)
     assert len(program.state_dict) == 0  # parameters and buffers are inputs
+
+
+def test_program_holds_the_cached_resize_matrices_as_constants(exported):
+    """Traced from an empty matrix cache, the step's resize matrices are
+    built before tracing (real tensors, not the tracer's fake ones) and are
+    constants of the program."""
+    resize._device_matrix.cache_clear()
+    program, _ = trace_frame_step(exported["pipe"], IMAGE_HW, N_FRAMES)
+    uploads = resize.matrix_cache_info().uploads
+    cpu = torch.device("cpu")
+    # the INTER_AREA matrices of the 1/16 downscale: 1440 -> 90, 1920 -> 120
+    area = [resize._device_matrix("area", 1440, 90, cpu),
+            resize._device_matrix("area", 1920, 120, cpu)]
+    assert resize.matrix_cache_info().uploads == uploads  # found in the cache
+    constants = list(program.constants.values())
+    for m in area:
+        assert type(m) is torch.Tensor
+        assert any(c.shape == m.shape and torch.equal(c, m) for c in constants)
 
 
 def test_load_builds_no_pipeline(exported, monkeypatch):

@@ -12,6 +12,12 @@ Tolerances: grid atol 1e-4 (the evidence is summed in another order), with
 the same set of nonzero cells; rendered maps equal on >= 99.9 % of cells
 (the JAX unfused render sums nine shifted planes, K1 sums separably, so a
 near-tie argmax may flip); the evaluator's scores equal.
+
+The resize matrices: a warmed ``run_window`` finds all of them in the
+device cache (``ops/resize.py``), four lookups a frame at the serving
+configuration's resizes, and fuses the same bits as a copy of each matrix
+made at every call; the banded resize's rows of the cached matrix give the
+full resize's rows bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +34,9 @@ from vision_semantic_segmentation_tpu.runtime.replay import MappingReplay as Jax
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.evaluation.map_eval import MapEvaluator
 from vision_semantic_segmentation_tpu_torch.models import flax_to_state_dict
+from vision_semantic_segmentation_tpu_torch.models.resize import resize_nchw
+from vision_semantic_segmentation_tpu_torch.ops import resize
+from vision_semantic_segmentation_tpu_torch.parallel import spatial_infer
 from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline, MappingReplay
 
 from test_torch_models import _randomize_bn
@@ -135,3 +144,100 @@ def test_scores_match(slice_run):
     ref = JaxEvaluator(ground_truth_dir=slice_run["gt_dir"]).test_single_map(slice_run["j_map"])
     np.testing.assert_equal(ours, ref)
     assert all(v > 0 for v in ours["iou"].values())  # every scored class was mapped
+
+
+# -- the resize matrices' device cache ----------------------------------------------------
+def _serving_pipeline(tmp_path, image_scale=1.0):
+    """The serving configuration's forward (OS8, points distorted) with a
+    small network.  At ``image_scale`` 1 (the serving configuration's: raw
+    frames, no INTER_AREA downscale) the frames are 180x240, an eighth of
+    the camera's, and a frame resizes twice: ASPP's pooled branch from 1x1
+    to the OS8 map, the decoder from it to the stride-4 map.  Below 1 the
+    frames are the camera's 1440x1920 and are downscaled first."""
+    cfg = _cfg(get_cfg_defaults, tmp_path, tmp_path)
+    cfg.VISION_SEM_SEG.IMAGE_SCALE = image_scale
+    cfg.VISION_SEM_SEG.SEM_SEG_NETWORK.MODEL.OUTPUT_STRIDE = 8
+    pipe = FusedFramePipeline(cfg, compute_dtype=torch.float32, distortion="points",
+                              device="cpu", generator=torch.Generator().manual_seed(4))
+    frames = {k: torch.from_numpy(v) for k, v in _frames(np.random.default_rng(8)).items()}
+    if image_scale == 1.0:
+        frames["image"] = frames["image"][:, ::8, ::8].contiguous()
+    # as in slice_run: the classifier's biases centred on frame 0, so that
+    # points take several classes and the map gets evidence
+    with torch.no_grad():
+        logits = pipe.segment(frames["image"][0])
+        pipe.model.state_dict()["decoder.refine_layers.2.conv.bias"] -= logits.mean((0, 2, 3))
+    return pipe, frames
+
+
+def _fuse(pipe, frames):
+    """A window from a fresh grid: the grid, and every frame's logits and labels."""
+    logits, labels = [], []
+    segment, step = pipe.segment, pipe.step
+
+    def recorded_segment(*a, **k):
+        logits.append(segment(*a, **k))
+        return logits[-1]
+
+    def recorded_step(*a, **k):
+        grid, lab = step(*a, **k)
+        labels.append(lab)
+        return grid, lab
+
+    pipe.segment, pipe.step = recorded_segment, recorded_step
+    try:
+        grid = pipe.run_window(pipe.init_grid(), frames)
+    finally:
+        pipe.segment, pipe.step = segment, step
+    return grid, logits, labels
+
+
+def test_warm_window_uploads_nothing_and_hits_four_a_frame(tmp_path):
+    pipe, frames = _serving_pipeline(tmp_path)
+    pipe.run_window(pipe.init_grid(), {k: v[:1] for k, v in frames.items()})  # the warm frame
+    before = resize.matrix_cache_info()
+    pipe.run_window(pipe.init_grid(), frames)
+    after = resize.matrix_cache_info()
+    assert after.uploads == before.uploads
+    assert after.hits - before.hits == 4 * N_FRAMES
+
+
+def test_cached_matrices_fuse_the_bits_of_per_call_copies(tmp_path, monkeypatch):
+    """The same window with the cache against a copy of each matrix made at
+    every call (INTER_AREA and align-corners matrices): grid, logits and
+    labels bit-equal."""
+    pipe, frames = _serving_pipeline(tmp_path, image_scale=1.0 / 16)
+    cached = _fuse(pipe, frames)
+    assert (cached[0] != 0).sum() > 100  # the window put evidence into the grid
+
+    def per_call(kind, in_size, out_size, device):
+        m = {"align_corners": resize._align_corners_matrix, "area": resize._area_matrix}[kind]
+        return torch.from_numpy(m(in_size, out_size).copy()).to(device)
+
+    monkeypatch.setattr(resize, "_device_matrix", per_call)
+    copied = _fuse(pipe, frames)
+    np.testing.assert_array_equal(cached[0].numpy(), copied[0].numpy())
+    for a, b in zip(cached[1] + cached[2], copied[1] + copied[2], strict=True):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_band_rows_of_the_cached_matrix_equal_the_full_resize(shards, dtype):
+    """``_resize_band`` on each output band's rows of the cached H matrix (a
+    view of it) and the source rows they touch: the full resize's rows."""
+    (h, w), (oh, ow) = (23, 30), (45, 60)
+    src = torch.from_numpy(np.random.default_rng(shards).standard_normal((2, 6, h, w))
+                           .astype(np.float32)).to(dtype)
+    full = resize_nchw(src, (oh, ow))
+    cpu = torch.device("cpu")
+    mh = resize._device_matrix("align_corners", h, oh, cpu)
+    mw = resize._device_matrix("align_corners", w, ow, cpu)
+    ranges = spatial_infer.resize_ranges(resize._align_corners_matrix(h, oh), shards)
+    bounds = spatial_infer.row_bounds(oh, shards)
+    for (o0, o1), (r0, r1) in zip(bounds, ranges, strict=True):
+        rows = mh[o0:o1, r0:r1]
+        assert rows.untyped_storage().data_ptr() == mh.untyped_storage().data_ptr()
+        band = spatial_infer._resize_band(src[:, :, r0:r1], rows, mw)
+        assert band.dtype == dtype
+        np.testing.assert_array_equal(band.float().numpy(), full[:, :, o0:o1].float().numpy())

@@ -126,8 +126,8 @@ def _port_resize_f64(x, out_hw):
 
 def _band_resize_f64(src, mh, mw):
     x = src.permute(0, 2, 3, 1).double()
-    y = torch.einsum("oh,...hwc->...owc", torch.from_numpy(np.ascontiguousarray(mh)).double(), x)
-    y = torch.einsum("ow,...hwc->...hoc", torch.from_numpy(mw).double(), y)
+    y = torch.einsum("oh,...hwc->...owc", mh.double(), x)
+    y = torch.einsum("ow,...hwc->...hoc", mw.double(), y)
     return y.to(src.dtype).permute(0, 3, 1, 2)
 
 

@@ -14,13 +14,21 @@ applied by f32 matmul, built with numpy exactly as the JAX package builds
 them.  ``F.interpolate`` is not used: torch's area mode is not cv2's
 INTER_AREA at non-integer ratios, and the matrices keep both packages on
 one arithmetic.  Layout is (..., H, W, C), as in the JAX package.
+
+The resizes read their matrices from :func:`_device_matrix`, which keeps
+each on the device it is used on: a copy from pageable host memory on every
+call would wait for the card's stream to drain, and hold the host there
+while a frame's work is queued.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.benchmark import span
 
 
 @functools.lru_cache(maxsize=256)
@@ -66,16 +74,44 @@ def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
     return M.astype(np.float32)
 
 
-def _separable_resize(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    """Apply 1-D resize matrices along the H and W axes of (..., H, W, C) f32.
+_MATRICES = {"align_corners": _align_corners_matrix, "area": _area_matrix}
+
+
+@functools.lru_cache(maxsize=256)
+def _device_matrix(kind: str, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """The (out, in) f32 matrix of ``kind`` (``'align_corners'`` or
+    ``'area'``) on ``device``, one tensor a key.
+
+    Built and copied once, at the key's first call (the copy may wait for
+    the card, inside ``span("resize.upload")``); on a CPU device the tensor
+    is a view of the host matrix."""
+    with span("resize.upload"):
+        m = torch.from_numpy(_MATRICES[kind](in_size, out_size))
+        return m if device.type == "cpu" else m.to(device)
+
+
+class MatrixCacheInfo(NamedTuple):
+    hits: int
+    uploads: int
+
+
+def matrix_cache_info() -> MatrixCacheInfo:
+    """Lookups of :func:`_device_matrix` that found their matrix (``hits``)
+    and those that built and copied it (``uploads``), since the process
+    started or the cache was last cleared."""
+    info = _device_matrix.cache_info()
+    return MatrixCacheInfo(info.hits, info.misses)
+
+
+def _separable_resize(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
+    """Apply 1-D resize matrices ``mh``, ``mw`` (f32, on ``x``'s device)
+    along the H and W axes of (..., H, W, C) f32.
 
     In f32 also under ``torch.autocast`` (bf16 training), as the JAX package
     resizes in f32 whatever the compute dtype."""
-    Mh = torch.from_numpy(mh).to(x.device)
-    Mw = torch.from_numpy(mw).to(x.device)
     with torch.autocast(x.device.type, enabled=False):
-        x = torch.einsum("oh,...hwc->...owc", Mh, x)
-        return torch.einsum("ow,...hwc->...hoc", Mw, x)
+        x = torch.einsum("oh,...hwc->...owc", mh, x)
+        return torch.einsum("ow,...hwc->...hoc", mw, x)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -84,9 +120,8 @@ def resize_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
     in_h, in_w = x.shape[-3], x.shape[-2]
     if (in_h, in_w) == (out_h, out_w):
         return x
-    y = _separable_resize(
-        x.float(), _align_corners_matrix(in_h, out_h), _align_corners_matrix(in_w, out_w)
-    )
+    y = _separable_resize(x.float(), _device_matrix("align_corners", in_h, out_h, x.device),
+                          _device_matrix("align_corners", in_w, out_w, x.device))
     return y.to(x.dtype)
 
 
@@ -98,7 +133,8 @@ def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         raise ValueError("INTER_AREA path is for downscaling")
     if (in_h, in_w) == (out_h, out_w):
         return x
-    y = _separable_resize(x.float(), _area_matrix(in_h, out_h), _area_matrix(in_w, out_w))
+    y = _separable_resize(x.float(), _device_matrix("area", in_h, out_h, x.device),
+                          _device_matrix("area", in_w, out_w, x.device))
     if not x.dtype.is_floating_point:
         # cv2 rounds to nearest when storing back to integer images
         y = torch.round(y)

@@ -93,7 +93,7 @@ from ..models.quant import QuantBackbone
 from ..models.resize import resize_nchw
 from ..models.resnet import BasicBlock, Bottleneck, ResNetBackbone
 from ..models.xception import Xception65, XceptionBlock
-from ..ops.resize import _align_corners_matrix, _separable_resize
+from ..ops.resize import _align_corners_matrix, _device_matrix, _separable_resize
 from .distributed import SpatialGroups, Traffic
 from .mesh import Mesh, _device, distinct
 
@@ -444,11 +444,11 @@ def k4_rows(height: int, shards: int, dilations: Sequence[int]) -> List[int]:
     return [min(height, o1 + dmax) - max(0, o0 - dmax) for o0, o1 in row_bounds(height, shards)]
 
 
-def _resize_band(src: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+def _resize_band(src: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
     """Rows ``mh`` (a slice of the H matrix) and matrix ``mw`` of the
-    align-corners resize of NCHW ``src``, in f32 as ``resize_align_corners``
-    resizes, returned in ``src``'s type."""
-    y = _separable_resize(src.permute(0, 2, 3, 1).float(), np.ascontiguousarray(mh), mw)
+    align-corners resize of NCHW ``src``, both on ``src``'s device, in f32
+    as ``resize_align_corners`` resizes, returned in ``src``'s type."""
+    y = _separable_resize(src.permute(0, 2, 3, 1).float(), mh, mw)
     return y.to(src.dtype).permute(0, 3, 1, 2)
 
 
@@ -460,14 +460,18 @@ def _resize_rows(x: Bands, out_hw: Tuple[int, int]) -> Bands:
     in_w = x.parts[0][0].shape[-1]
     if (x.height, in_w) == (out_h, out_w):
         return x
-    mh = _align_corners_matrix(x.height, out_h)
-    mw = _align_corners_matrix(in_w, out_w)
-    ranges = resize_ranges(mh, x.count)
+    ranges = resize_ranges(_align_corners_matrix(x.height, out_h), x.count)
     bounds = row_bounds(out_h, x.count)
     parts = []
     for g in range(len(x.devices)):
-        parts.append([_resize_band(src, mh[bounds[b][0]:bounds[b][1], ranges[b][0]:ranges[b][1]],
-                                   mw) for b, src in zip(x.index, x.fetch_bands(g, ranges))])
+        per_band = []
+        for b, src in zip(x.index, x.fetch_bands(g, ranges)):
+            # rows of the cached matrix: a view, nothing copied to the card
+            mh = _device_matrix("align_corners", x.height, out_h, src.device)
+            mw = _device_matrix("align_corners", in_w, out_w, src.device)
+            per_band.append(_resize_band(
+                src, mh[bounds[b][0]:bounds[b][1], ranges[b][0]:ranges[b][1]], mw))
+        parts.append(per_band)
     return x.like(parts, out_h)
 
 

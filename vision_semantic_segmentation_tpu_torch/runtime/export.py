@@ -95,6 +95,9 @@ def trace_frame_step(pipeline, image_hw: Tuple[int, int], window: int, camera: s
     # build the step's cached closures here, with real constants: built
     # while tracing, they would keep the tracer's fake tensors
     pipeline._pointwise_for(camera, (h, w), pcd_frame_id == "velodyne")
+    # and the resize matrices' device cache (``ops/resize.py``), by one
+    # forward: they export as the program's constants
+    pipeline.segment(args[2], camera)
     with torch.no_grad():
         program = torch.export.export(_FrameStep(pipeline, camera, pcd_frame_id), args,
                                       strict=False)
