@@ -12,8 +12,9 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn as nn
 
-from ..reference.deeplab import DeepLabV3Plus, fp8_quant, normalize
+from ..reference.deeplab import fp8_quant, normalize
 
 
 def tf32_off() -> None:
@@ -21,11 +22,13 @@ def tf32_off() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def reference_network(net: dict, state_dict: Dict[str, torch.Tensor], device,
-                      training: bool = False) -> DeepLabV3Plus:
+def reference_network(reference, net: dict, state_dict: Dict[str, torch.Tensor], device,
+                      training: bool = False) -> nn.Module:
+    """The configuration's reference network (``reference.network``) in
+    float32 on ``device``, loaded strictly from ``state_dict``."""
     tf32_off()
     with torch.device(device):
-        model = DeepLabV3Plus(net)
+        model = reference.network(net)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
                            if v.is_floating_point() else v for k, v in state_dict.items()},
                           strict=True)
@@ -46,16 +49,16 @@ def logit_numbers(program: torch.Tensor, reference: torch.Tensor) -> Tuple[float
 
 
 @torch.no_grad()
-def network_readings(net: dict, state_dict, frames_u8: Sequence[torch.Tensor],
+def network_readings(reference, net: dict, state_dict, frames_u8: Sequence[torch.Tensor],
                      program_logits: Sequence[torch.Tensor], device,
                      control: bool, image_scale: float = 1.0) -> Tuple[float, float]:
     """Worst ``logit_numbers`` over the frames.  ``frames_u8``: (H, W, 3)
     uint8 frames as the window fed them; ``program_logits``: (1, C, h, w)
     logits the program produced for each (ignored under ``control``)."""
-    model = reference_network(net, state_dict, device)
+    model = reference_network(reference, net, state_dict, device)
     low = None
     if control:
-        low = reference_network(net, state_dict, device)
+        low = reference_network(reference, net, state_dict, device)
         low.set_quant(fp8_quant)
     errs, gaps = [], []
     for frame, logits in zip(frames_u8, program_logits):

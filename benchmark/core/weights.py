@@ -6,7 +6,10 @@ BatchNorm is the identity (weight 1, bias 0, running mean 0, running
 variance 1), but for the last BatchNorm of each residual branch, whose
 weight is ``residual_bn_weight`` (1, or smaller as in the zero-init
 residual recipe of Goyal et al., arXiv:1706.02677, which keeps a deep
-network's training step well conditioned at initialisation).  All kernels come from one ``torch.randn`` call on a
+network's training step well conditioned at initialisation).  The shapes,
+the residual branches' last BatchNorm and the classifier's bias are the
+configuration's reference module's (``benchmark/reference/__init__.py``).
+All kernels come from one ``torch.randn`` call on a
 ``torch.Generator`` of the device, cut into views and scaled; the result is
 cast once to the type the weights are served in.  The same dict goes to the
 program and to the reference.
@@ -17,12 +20,18 @@ from typing import Dict
 
 import torch
 
-from ..reference.deeplab import reference_state_shapes
+
+def state_shapes(reference, net: dict) -> Dict[str, torch.Size]:
+    """Every state-dict entry's shape, from the network built on the meta device."""
+    with torch.device("meta"):
+        model = reference.network(net)
+    return {k: v.shape for k, v in model.state_dict().items()}
 
 
-def make_state_dict(net: dict, seed: int, device, dtype: torch.dtype,
+def make_state_dict(reference, net: dict, seed: int, device, dtype: torch.dtype,
                     residual_bn_weight: float = 1.0) -> Dict[str, torch.Tensor]:
-    shapes = reference_state_shapes(net)
+    shapes = state_shapes(reference, net)
+    residual_bn = reference.residual_bn_weights(net, shapes)
     dev = torch.device(device)
     kernels = [k for k, s in shapes.items() if k.endswith("weight") and len(s) == 4]
     total = sum(shapes[k].numel() for k in kernels)
@@ -43,7 +52,7 @@ def make_state_dict(net: dict, seed: int, device, dtype: torch.dtype,
             continue
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long, device=dev)
-        elif k.endswith("bn3.weight"):
+        elif k in residual_bn:
             out[k] = torch.full(s, float(residual_bn_weight), device=dev)
         elif k.endswith("running_var") or (k.endswith("weight") and len(s) == 1):
             out[k] = torch.ones(s, device=dev)
@@ -53,7 +62,7 @@ def make_state_dict(net: dict, seed: int, device, dtype: torch.dtype,
 
 
 @torch.no_grad()
-def center_classifier(net: dict, state_dict: Dict[str, torch.Tensor],
+def center_classifier(reference, net: dict, state_dict: Dict[str, torch.Tensor],
                       image: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The classifier's biases set to minus each class's mean logit over one
     image, so that no class wins every pixel.
@@ -66,14 +75,12 @@ def center_classifier(net: dict, state_dict: Dict[str, torch.Tensor],
     random network chaotic (rounding grows block by block).  ``image``:
     (1, 3, H, W) normalised; the reference network runs it in float32.
     """
-    from ..reference.deeplab import DeepLabV3Plus
-
     with torch.device(image.device):
-        model = DeepLabV3Plus(net)
+        model = reference.network(net)
     model.load_state_dict({k: v.float() if v.is_floating_point() else v
                            for k, v in state_dict.items()})
     logits = model.eval()(image.float())
-    key = f"decoder.refine_layers.{len(net['decoder_refine_channels'])}.conv.bias"
+    key = reference.classifier_bias(net)
     out = dict(state_dict)
     out[key] = (state_dict[key].float() - logits.mean(dim=(0, 2, 3))).to(state_dict[key].dtype)
     return out

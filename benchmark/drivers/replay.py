@@ -80,9 +80,9 @@ class Driver:
         dtype = DTYPES[conf["network"]["compute_dtype"]]
         first = torch.as_tensor(self.pool["image"][0], device=run.device)[None]
         self.state_dict = center_classifier(
-            conf["network"],
-            make_state_dict(conf["network"], sub_seed(run.seed, 0), run.device, dtype,
-                            conf["weights"]["residual_bn_weight"]),
+            run.reference, conf["network"],
+            make_state_dict(run.reference, conf["network"], sub_seed(run.seed, 0), run.device,
+                            dtype, conf["weights"]["residual_bn_weight"]),
             normalize(first, conf["input"]["image_scale"]))
         self.pipeline = FusedFramePipeline(self.cfg, state_dict=self.state_dict,
                                            compute_dtype=dtype,
@@ -171,7 +171,7 @@ class Driver:
         picks = sorted(rng.sample(range(len(last)), min(int(run.traffic["check_frames"]),
                                                         len(last))))
         frames = [self.pool["image"][last[i]] for i in picks]
-        err, gap = network_readings(conf["network"], self.state_dict, frames,
+        err, gap = network_readings(run.reference, conf["network"], self.state_dict, frames,
                                     [self.logits[i] for i in picks], run.device, control,
                                     conf["input"]["image_scale"])
         grid_err = self.grid_reading(control)

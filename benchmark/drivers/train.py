@@ -84,8 +84,9 @@ class Driver:
         marks.append(("batches", time.perf_counter()))
         self.trainer = Trainer(cfg, device=run.device)
         marks.append(("trainer", time.perf_counter()))
-        self.state_dict = make_state_dict(conf["network"], sub_seed(run.seed, 0), run.device,
-                                          torch.float32, conf["weights"]["residual_bn_weight"])
+        self.state_dict = make_state_dict(run.reference, conf["network"], sub_seed(run.seed, 0),
+                                          run.device, torch.float32,
+                                          conf["weights"]["residual_bn_weight"])
         self.trainer.model.load_state_dict(self.state_dict, strict=True)
         marks.append(("weights", time.perf_counter()))
         self.params = dict(self.trainer.model.named_parameters())
@@ -216,7 +217,8 @@ class Driver:
         return mask
 
     def reference(self, state_dict, rng, quant: bool):
-        model = reference_network(self.run.config["network"], state_dict, self.run.device,
+        run = self.run
+        model = reference_network(run.reference, run.config["network"], state_dict, run.device,
                                   training=True)
         if quant:
             model.set_quant(fp8_quant, fp8_grad_quant)

@@ -16,10 +16,15 @@ at the decoder's resolution unless ``upsample`` is asked for.
 
 ``quant`` is the control's hook: a function applied to every convolution's
 input and weight before it runs (identity for the reference itself).
+
+A reference module of the benchmark (the contract is in
+``benchmark/reference/__init__.py``): ``network``, ``classifier_bias`` and
+``residual_bn_weights`` below.  A reference of another backbone hands
+``DeepLabV3Plus`` its own backbone and imports the rest from here.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence, Set
 
 import torch
 import torch.nn as nn
@@ -195,11 +200,14 @@ class Decoder(nn.Module):
 
 
 class DeepLabV3Plus(nn.Module):
-    def __init__(self, net: dict):
-        """``net``: the ``network`` object of a configuration file."""
+    def __init__(self, net: dict, backbone: Optional[nn.Module] = None):
+        """``net``: the ``network`` object of a configuration file.
+        ``backbone``: a module whose forward gives ``feature`` (2048
+        channels) and ``low_feature`` (256 channels); by default the ResNet
+        ``Backbone`` that ``net`` describes."""
         super().__init__()
-        self.backbone = Backbone(net["layers"], net["groups"], net["width_per_group"],
-                                 net["output_stride"])
+        self.backbone = backbone if backbone is not None else Backbone(
+            net["layers"], net["groups"], net["width_per_group"], net["output_stride"])
         self.aspp = ASPP(2048, net["aspp_out_channels"], net["aspp_atrous_channels"],
                          net["aspp_dilations"], net["aspp_dropout"])
         self.decoder = Decoder(net["aspp_out_channels"], 256, net["num_classes"],
@@ -234,11 +242,20 @@ def fp8_grad_quant(g: torch.Tensor) -> torch.Tensor:
     return (g / scale).to(torch.float8_e5m2).to(g.dtype) * scale
 
 
-def reference_state_shapes(net: dict) -> Dict[str, torch.Size]:
-    """Every state-dict entry's shape, from a network built on the meta device."""
-    with torch.device("meta"):
-        model = DeepLabV3Plus(net)
-    return {k: v.shape for k, v in model.state_dict().items()}
+def network(net: dict) -> DeepLabV3Plus:
+    """The configuration's network, built on the current device."""
+    return DeepLabV3Plus(net)
+
+
+def classifier_bias(net: dict) -> str:
+    """The state-dict key of the classifier's bias."""
+    return f"decoder.refine_layers.{len(net['decoder_refine_channels'])}.conv.bias"
+
+
+def residual_bn_weights(net: dict, keys: Iterable[str]) -> Set[str]:
+    """Of the state-dict ``keys``, the weights of each residual branch's
+    last BatchNorm (a bottleneck's ``bn3``)."""
+    return {k for k in keys if k.endswith("bn3.weight")}
 
 
 def normalize(frames_u8: torch.Tensor, scale: float = 1.0) -> torch.Tensor:

@@ -12,9 +12,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
-
-from .deeplab import DeepLabV3Plus
 
 
 def cross_entropy(logits: torch.Tensor, label: torch.Tensor, ignore: int = 255) -> torch.Tensor:
@@ -30,7 +29,7 @@ def poly_lr(train: dict, k: int) -> float:
     return train["base_lr"] * (1.0 - frac) ** train["poly_power"]
 
 
-def sgd_steps(model: DeepLabV3Plus, train: dict,
+def sgd_steps(model: nn.Module, train: dict,
               batches: Sequence[Tuple[torch.Tensor, torch.Tensor]], start: int = 0,
               bufs: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[List[float], Dict[str, torch.Tensor], Dict[str, torch.Tensor],

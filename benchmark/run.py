@@ -28,6 +28,10 @@ card (or fewer than the cell asks for); 3 when a module of JAX or of the JAX
 package is loaded after the window; 1 on any other error.  ``--control``
 puts the reference computed one precision lower in the program's place for
 the check (the control of the limits, which must come out not correct).
+
+The configuration's ``network.reference`` names its reference network,
+``benchmark/reference/<name>.py`` (``run.reference``), which the drivers and
+the FLOP count use.
 """
 from __future__ import annotations
 
@@ -69,6 +73,20 @@ def load_file_module(name: str, path: Path):
     return module
 
 
+def load_reference(root: Path, net: dict):
+    """The reference module that a configuration's ``network.reference``
+    names: ``benchmark/reference/<name>.py`` under ``root`` (its contract is
+    in ``benchmark/reference/__init__.py``).  There is no default."""
+    name = net.get("reference")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"network.reference {name!r} names no reference module: it is "
+                         f"the <name> of {root / 'benchmark' / 'reference'}/<name>.py")
+    path = root / "benchmark" / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"network.reference {name!r}: no file {path}")
+    return load_file_module(f"benchmark.reference.{name}", path)
+
+
 class Run:
     """What a driver and a metric reader see of one run."""
 
@@ -81,6 +99,7 @@ class Run:
         self.cell = cell
         self.config_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
         self.config = json.loads((root / self.config_entry["file"]).read_text())
+        self.reference = load_reference(root, self.config["network"])
         self.traffic = json.loads(
             (root / "benchmark" / "traffic" / f"{cell['traffic']}.json").read_text())
         self.seed = int(seed)

@@ -46,10 +46,10 @@ def _few_threads():
 
 
 def make_tiny_root(dst: Path) -> Path:
-    """A copy of ``BENCHMARK.json`` and the benchmark's data, drivers and
-    readers, shrunk to run on the CPU in seconds."""
+    """A copy of ``BENCHMARK.json`` and the benchmark's data, drivers,
+    readers and reference networks, shrunk to run on the CPU in seconds."""
     (dst / "benchmark").mkdir(parents=True)
-    for sub in ("configs", "traffic", "metrics", "drivers"):
+    for sub in ("configs", "traffic", "metrics", "drivers", "reference"):
         shutil.copytree(REPO / "benchmark" / sub, dst / "benchmark" / sub)
     shutil.copy(REPO / "BENCHMARK.json", dst / "BENCHMARK.json")
     for p in (dst / "benchmark" / "configs").glob("*.json"):

@@ -12,6 +12,7 @@ from benchmark.core.checks import leaf_gap, logit_numbers, reference_network
 from benchmark.core.portcfg import serving_cfg, train_cfg
 from benchmark.core.traffic import blob_classes, frame_pool
 from benchmark.core.weights import center_classifier, make_state_dict
+from benchmark.reference import deeplab
 from benchmark.reference.deeplab import normalize
 from benchmark.reference.mapping import MapReference, grid_error
 from benchmark.reference.train import cross_entropy, sgd_steps
@@ -26,13 +27,13 @@ def test_network_logits_agree():
 
     frame = torch.randint(0, 256, (72, 96, 3), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(3))
-    sd = make_state_dict(SERVE["network"], 11, "cpu", torch.float32)
-    sd = center_classifier(SERVE["network"], sd, normalize(frame[None]))
+    sd = make_state_dict(deeplab, SERVE["network"], 11, "cpu", torch.float32)
+    sd = center_classifier(deeplab, SERVE["network"], sd, normalize(frame[None]))
     pipe = FusedFramePipeline(serving_cfg(SERVE), state_dict=sd, compute_dtype=torch.float32,
                               distortion="points", device="cpu")
     with torch.no_grad():
         prog = pipe.segment(frame)[0]
-        ref = reference_network(SERVE["network"], sd, "cpu")(normalize(frame[None]))[0]
+        ref = reference_network(deeplab, SERVE["network"], sd, "cpu")(normalize(frame[None]))[0]
     err, gap = logit_numbers(prog, ref)
     assert err < 1e-4 and gap < 1e-4, (err, gap)
 
@@ -75,7 +76,7 @@ def test_train_step_agrees():
     conf["network"]["aspp_dropout"] = 0.0
     cfg = train_cfg(conf, "unused", "", 5)
     model, *_ = build_train_model(cfg, device="cpu")
-    sd = make_state_dict(conf["network"], 12, "cpu", torch.float32,
+    sd = make_state_dict(deeplab, conf["network"], 12, "cpu", torch.float32,
                          conf["weights"]["residual_bn_weight"])
     model.load_state_dict(sd)
     opt = build_optimizer(cfg, list(model.parameters()))
@@ -88,7 +89,7 @@ def test_train_step_agrees():
     label = torch.randint(0, 19, (2, 65, 65), generator=gen)
     label[:, :5] = 255
     loss = float(step(state, {"image": image, "label": label})["loss"])
-    ref = reference_network(conf["network"], sd, "cpu", training=True)
+    ref = reference_network(deeplab, conf["network"], sd, "cpu", training=True)
     losses, first, _, _ = sgd_steps(ref, conf["train"], [(image.permute(0, 3, 1, 2), label)])
     assert abs(loss - losses[0]) < 1e-5 * abs(losses[0])
     prog = {n: opt.state[p]["momentum_buffer"] for n, p in model.named_parameters()}
@@ -112,7 +113,7 @@ def test_train_step_from_the_programs_state_agrees():
     conf["train"]["poly_max_iter"] = 4  # the learning rate moves from step to step
     cfg = train_cfg(conf, "unused", "", 5)
     model, *_ = build_train_model(cfg, device="cpu")
-    sd = make_state_dict(conf["network"], 13, "cpu", torch.float32,
+    sd = make_state_dict(deeplab, conf["network"], 13, "cpu", torch.float32,
                          conf["weights"]["residual_bn_weight"])
     model.load_state_dict(sd)
     opt = build_optimizer(cfg, list(model.parameters()))
@@ -129,7 +130,7 @@ def test_train_step_from_the_programs_state_agrees():
     before = {n: p.detach().clone() for n, p in params.items()}
     bufs = {n: opt.state[p]["momentum_buffer"].clone() for n, p in params.items()}
     loss = float(step(state, batches[2])["loss"])
-    ref = reference_network(conf["network"], dict(sd, **before), "cpu", training=True)
+    ref = reference_network(deeplab, conf["network"], dict(sd, **before), "cpu", training=True)
     b = batches[2]
     losses, taken, _, _ = sgd_steps(ref, conf["train"], [(b["image"].permute(0, 3, 1, 2),
                                                           b["label"])], start=2, bufs=bufs)

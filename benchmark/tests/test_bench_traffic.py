@@ -9,6 +9,7 @@ import torch
 
 from benchmark.core.traffic import MAPILLARY_19, frame_pool, sub_seed, train_batches
 from benchmark.core.weights import make_state_dict
+from benchmark.reference import deeplab
 from benchmark.tests.conftest import REPO
 
 SERVE = json.loads((REPO / "benchmark/configs/deeplabv3p-rx50-os8-serve.json").read_text())
@@ -53,8 +54,8 @@ def test_train_batches_repeat_from_a_seed(seed):
 
 def test_weights_repeat_from_a_seed():
     net = SERVE["network"]
-    a = make_state_dict(net, sub_seed(2 ** 31 + 5, 0), "cpu", torch.bfloat16)
-    b = make_state_dict(net, sub_seed(2 ** 31 + 5, 0), "cpu", torch.bfloat16)
+    a = make_state_dict(deeplab, net, sub_seed(2 ** 31 + 5, 0), "cpu", torch.bfloat16)
+    b = make_state_dict(deeplab, net, sub_seed(2 ** 31 + 5, 0), "cpu", torch.bfloat16)
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
     w = a["backbone.layer4.0.conv2.weight"].float()
     fan_out = w.shape[0] * 9
