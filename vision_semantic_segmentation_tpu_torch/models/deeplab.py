@@ -5,6 +5,11 @@ deeplab_v3_plus.py:10-71): backbone -> ASPP -> decoder, with the atrous
 dilations widened for output stride 8 ((1, 12, 24, 36)) vs 16
 ((1, 6, 12, 18)), and optional align_corners=True upsampling of the
 logits to the input size.
+
+The backbone is a ResNet of ``resnet.build_backbone`` or, as
+``"xception65"``, the modified aligned Xception-65 of the DeepLabV3+ paper
+(arXiv:1802.02611, section 4.2) at output stride 16 with its exit convs at
+rate 2 (``xception.Xception65``).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from .aspp import ASPP
 from .decoder import Decoder
 from .resize import resize_nchw
 from .resnet import build_backbone
+from .xception import Xception65
 
 
 class DeepLabV3Plus(nn.Module):
@@ -38,7 +44,10 @@ class DeepLabV3Plus(nn.Module):
         dilations = {16: (1, 6, 12, 18), 8: (1, 12, 24, 36)}.get(output_stride)
         if dilations is None:
             raise NotImplementedError(f"output_stride {output_stride}")
-        self.backbone = build_backbone(backbone, output_stride, remat=remat_backbone)
+        if backbone == "xception65":
+            self.backbone = Xception65(output_stride, remat=remat_backbone, exit_rate=2)
+        else:
+            self.backbone = build_backbone(backbone, output_stride, remat=remat_backbone)
         self.aspp = ASPP(
             self.backbone.out_channels, aspp_out_channels, aspp_atrous_channels,
             aspp_atrous_kernel_size, dilations, aspp_dropout,

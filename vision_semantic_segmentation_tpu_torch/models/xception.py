@@ -22,9 +22,17 @@ state dict loads with ``load_state_dict(strict=True)``:
 
 Every separable conv with stride 1 (60 a frame: 2 in each entry block, 48
 in the middle flow, 3 in the exit block, the 3 exit convs) has a 3x3
-depthwise conv with padding 1, which runs K3 on the card
+depthwise conv whose padding equals its dilation, which runs K3 on the card
 (``layers.DepthwiseConv2d``); the stride-2 depthwise convs and every dense
 conv run on cuDNN, as the JAX package leaves them to XLA.
+
+The three exit convs run at the atrous rate ``exit_rate``: 1 in the
+reference's unwired backbone (and ``XceptionSeg``), 2 under DeepLabV3+ as
+TF DeepLab's ``xception_65`` runs them at output stride 16 (the entry flow
+reaches the stride, so the exit block's stride 2 becomes 1 and the rate of
+the block after it doubles).  The forward marks the three flows as the
+spans ``xception.entry``, ``xception.middle`` and ``xception.exit``
+(``utils/benchmark.py::span``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.benchmark import span
 from .layers import ConvBNReLU, DepthwiseSeparableConv, checkpointed
 
 
@@ -115,16 +124,18 @@ class Xception65(nn.Module):
     Returns ``{"feature" (2048 channels, OS16), "low_feature" (256
     channels, OS4, entry block 2's pre-ReLU tap)}``, the backbone contract
     of the DeepLab head.  ``remat`` recomputes each block in the backward
-    pass (the JAX package's ``nn.remat`` per block).
+    pass (the JAX package's ``nn.remat`` per block); ``exit_rate`` is the
+    dilation of the three exit convs.
     """
 
     out_channels = 2048
     low_level_channels = 256
 
-    def __init__(self, output_stride: int = 16, remat: bool = False):
+    def __init__(self, output_stride: int = 16, remat: bool = False, exit_rate: int = 1):
         super().__init__()
         if output_stride != 16:
-            raise NotImplementedError("Xception65 is built at output stride 16")
+            raise NotImplementedError(
+                f"backbone xception65 is built at output stride 16, not {output_stride}")
         self.remat = remat
 
         def entry_block(cin: int, ch: int, tap: bool = False) -> XceptionBlock:
@@ -146,8 +157,9 @@ class Xception65(nn.Module):
             for _ in range(16)
         ])
         exit_convs = [
-            DepthwiseSeparableConv(cin, ch, 3, padding="same", depthwise_bn=True,
-                                   depthwise_relu=True, pointwise_bn=True, pointwise_relu=True)
+            DepthwiseSeparableConv(cin, ch, 3, padding="same", dilation=exit_rate,
+                                   depthwise_bn=True, depthwise_relu=True, pointwise_bn=True,
+                                   pointwise_relu=True)
             for cin, ch in ((1024, 1536), (1536, 1536), (1536, 2048))
         ]
         self.exit_flow_modules = nn.ModuleList([
@@ -163,14 +175,17 @@ class Xception65(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         stem1, stem2, block1, block2, block3 = self.entry_flow_modules
-        x = stem2(stem1(x))
-        x = self._block(block1, x)
-        x, low_feature = self._block(block2, x)
-        x = self._block(block3, x)
-        for block in self.middle_flow_modules:
-            x = self._block(block, x)
-        x = self._block(self.exit_flow_modules[0], x)
-        for conv in self.exit_flow_modules[1:]:
-            x = conv(x)
+        with span("xception.entry"):
+            x = stem2(stem1(x))
+            x = self._block(block1, x)
+            x, low_feature = self._block(block2, x)
+            x = self._block(block3, x)
+        with span("xception.middle"):
+            for block in self.middle_flow_modules:
+                x = self._block(block, x)
+        with span("xception.exit"):
+            x = self._block(self.exit_flow_modules[0], x)
+            for conv in self.exit_flow_modules[1:]:
+                x = conv(x)
         return {"feature": x, "low_feature": low_feature}
 
