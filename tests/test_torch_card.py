@@ -14,6 +14,15 @@ memory at every call, now come from the device cache of ``ops/resize.py``).
 And the cache changes no bit: the same window with a copy of each matrix
 made at every call gives the same grid, logits and labels; the step
 exported from an empty cache equals ``run_window``.
+
+The forward's CUDA graph (``FusedFramePipeline.segment``): a warmed window
+replays it, with no matrix lookup; the graphed logits of a ResNeXt50 OS8
+and an Xception-65 OS16 network equal the eager ones bit for bit, each
+return is a tensor of its own, weights loaded after the capture are
+honoured, the resize matrices it reads stay its own when the cache is
+cleared, a new frame shape captures again, the kernels' launch counts
+after n graphed frames equal those after n eager ones, and a capture that
+raises leaves its key eager with the eager logits.
 """
 import numpy as np
 import pytest
@@ -21,6 +30,7 @@ import torch
 
 from vision_semantic_segmentation_tpu_torch.config import get_cfg_defaults
 from vision_semantic_segmentation_tpu_torch.mapping import PCD_ORIGIN_OFFSET
+from vision_semantic_segmentation_tpu_torch.ops import kernels as K
 from vision_semantic_segmentation_tpu_torch.ops import resize
 from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline
 
@@ -81,22 +91,31 @@ CASES = [(1.0, 4), (0.25, 6)]
 
 
 @pytest.mark.parametrize("image_scale,lookups", CASES)
-def test_warm_window_waits_for_nothing(card, image_scale, lookups):
+def test_warm_window_waits_for_nothing(card, monkeypatch, image_scale, lookups):
+    """The warmed window replays the forward's graph: no wait, no matrix
+    looked up (the graph reads them by address).  The eager forward (no
+    graph key) finds every matrix in the cache and waits for nothing either."""
     pipe, frames = _pipeline(card, image_scale)
     grid = pipe.init_grid()
-    for _ in range(2):  # warm: every matrix uploaded, cuDNN's plans chosen
+    for _ in range(2):  # warm: every matrix uploaded, cuDNN's plans chosen, the graph captured
         grid = pipe.run_window(grid, frames)
     torch.cuda.synchronize()
-    before = resize.matrix_cache_info()
+    before, graphs = resize.matrix_cache_info(), pipe.segment_graph_info()
     torch.cuda.set_sync_debug_mode("error")
     try:
         grid = pipe.run_window(grid, frames)
+        with monkeypatch.context() as eager:
+            eager.setattr(pipe, "_graph_key", lambda *args: None)
+            for frame in frames["image"]:
+                pipe.segment(frame)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     after = resize.matrix_cache_info()
     assert after.uploads == before.uploads
     assert after.hits - before.hits == lookups * FRAMES
+    assert pipe.segment_graph_info() == graphs._replace(replays=graphs.replays + FRAMES,
+                                                        eager=graphs.eager + FRAMES)
     assert int((grid != 0).sum()) > 100
 
 
@@ -123,7 +142,9 @@ def _fuse(pipe, frames):
 
 @pytest.mark.parametrize("image_scale", [scale for scale, _ in CASES])
 def test_cached_matrices_fuse_the_bits_of_per_call_copies(card, monkeypatch, image_scale):
+    """Both windows eager (no graph key): a capture may not copy a matrix in."""
     pipe, frames = _pipeline(card, image_scale)
+    monkeypatch.setattr(pipe, "_graph_key", lambda *args: None)
     cached = _fuse(pipe, frames)
 
     def per_call(kind, in_size, out_size, device):
@@ -153,3 +174,142 @@ def test_exported_step_from_an_empty_cache(card):
     grid = run(pipe.init_grid(), frames)
     torch.testing.assert_close(grid, want, atol=1e-3, rtol=0)
     assert int((grid != 0).sum()) > 100
+
+
+# -- the forward's CUDA graph ----------------------------------------------------------
+NETWORKS = [("resnext50_32x4d", 8), ("xception65", 16)]
+
+
+def _network(card, backbone, output_stride, seed=5):
+    """The serving step of a full-width network in bf16 (raw frames, points
+    distorted) and three raw 96x128 frames on the card."""
+    cfg = get_cfg_defaults()
+    net = cfg.VISION_SEM_SEG.SEM_SEG_NETWORK
+    net.MODEL.BACKBONE = backbone
+    net.MODEL.OUTPUT_STRIDE = output_stride
+    if backbone == "xception65":
+        net.MODEL.DECODER.LOW_LEVEL_OUT_CHANNELS = 48
+    pipe = FusedFramePipeline(cfg, compute_dtype=torch.bfloat16, distortion="points",
+                              device=card, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, 96, 128, 3), dtype=np.uint8)).to(card)
+    return pipe, frames
+
+
+def _eager(pipe, frame):
+    """``segment`` with no graph key: the forward launched op by op."""
+    with pytest.MonkeyPatch.context() as eager:
+        eager.setattr(pipe, "_graph_key", lambda *args: None)
+        return pipe.segment(frame)
+
+
+@pytest.mark.parametrize("backbone,output_stride", NETWORKS)
+def test_graphed_logits_equal_eager(card, backbone, output_stride):
+    pipe, frames = _network(card, backbone, output_stride)
+    with torch.no_grad():
+        graphed = [pipe.segment(frame) for frame in frames]
+    assert pipe.segment_graph_info() == (1, 2, 1, 0)  # eager, captured and replayed, replayed
+    for frame, got in zip(frames, graphed):
+        assert torch.equal(got, _eager(pipe, frame))
+    assert not torch.equal(graphed[1], graphed[2])
+
+
+def test_graphed_returns_do_not_alias(card):
+    pipe, frames = _network(card, *NETWORKS[1])
+    with torch.no_grad():
+        pipe.segment(frames[0])
+        first = pipe.segment(frames[1])
+        kept = first.clone()
+        second = pipe.segment(frames[2])
+    assert first.data_ptr() != second.data_ptr()
+    assert torch.equal(first, kept)
+
+
+def test_load_state_dict_after_capture_is_honoured(card):
+    pipe, frames = _network(card, *NETWORKS[1])
+    with torch.no_grad():
+        for frame in frames[:2]:
+            pipe.segment(frame)
+        other = _network(card, *NETWORKS[1], seed=6)[0].model.state_dict()
+        pipe.model.load_state_dict(other)
+        got = pipe.segment(frames[2])
+    assert pipe.segment_graph_info() == (1, 2, 1, 0)
+    assert torch.equal(got, _eager(pipe, frames[2]))
+
+
+def test_graph_holds_the_matrices_the_cache_drops(card):
+    """The resize matrices a capture read stay the graph's: the cache
+    cleared and its memory handed out again, the replay still gives the
+    eager logits."""
+    pipe, frames = _network(card, *NETWORKS[0])
+    with torch.no_grad():
+        for frame in frames[:2]:  # eager, then captured and replayed
+            pipe.segment(frame)
+        resize._device_matrix.cache_clear()
+        scribbled = [torch.full((n,), 1e9, device=card) for n in range(1, 4096, 3)]
+        got = pipe.segment(frames[2])
+        torch.cuda.synchronize()
+        del scribbled  # held over the replay
+    assert pipe.segment_graph_info() == (1, 2, 1, 0)
+    assert torch.equal(got, _eager(pipe, frames[2]))
+
+
+def test_new_frame_shape_captures_again(card):
+    pipe, frames = _network(card, *NETWORKS[1])
+    smaller = frames[:, :64, :96].contiguous()
+    with torch.no_grad():
+        for frame in frames[:2]:
+            pipe.segment(frame)
+        got = [pipe.segment(frame) for frame in smaller[:2]]
+    assert pipe.segment_graph_info() == (2, 2, 2, 0)
+    assert got[1].shape[-2:] != pipe.segment(frames[0]).shape[-2:]
+    for frame, logits in zip(smaller, got):
+        assert torch.equal(logits, _eager(pipe, frame))
+
+
+@pytest.mark.parametrize("backbone,output_stride", NETWORKS)
+def test_graphed_launches_equal_eager_launches(card, backbone, output_stride):
+    """K3 and K4 launches after n graphed frames equal those after n eager
+    ones (Xception-65: 60 K3 and 1 K4 a frame; ResNeXt50: 1 K4)."""
+    pipe, frames = _network(card, backbone, output_stride)
+    with torch.no_grad():
+        for frame in frames[:2]:  # eager, then captured and replayed
+            pipe.segment(frame)
+
+    def counted(run):
+        K.reset_launch_counts()
+        for frame in frames:
+            run(frame)
+        torch.cuda.synchronize()
+        return {k.name: k.launches for k in K.kernels() if k.launches}
+
+    with torch.no_grad():
+        graphed = counted(pipe.segment)
+    eager = counted(lambda frame: _eager(pipe, frame))
+    k3 = 60 * len(frames) if backbone == "xception65" else 0
+    want = {"aspp_depthwise3x3_multi": len(frames)} | ({"depthwise3x3_dilated": k3} if k3 else {})
+    assert graphed == eager == want
+    assert pipe.segment_graph_info().replays == 1 + len(frames)
+
+
+def test_failed_capture_falls_back_to_eager(card):
+    """A forward that waits for the card cannot be captured: the capture
+    raises, is counted and warned of, the caller's stream is restored, and
+    the key runs eagerly with the eager logits."""
+    pipe, frames = _network(card, *NETWORKS[1])
+    forward = pipe.model.forward
+
+    def waiting_forward(*args, **kwargs):
+        torch.cuda.synchronize()
+        return forward(*args, **kwargs)
+
+    pipe.model.forward = waiting_forward
+    stream = torch.cuda.current_stream()
+    with torch.no_grad():
+        pipe.segment(frames[0])
+        with pytest.warns(RuntimeWarning, match="runs eagerly"):
+            got = [pipe.segment(frame) for frame in frames[1:]]
+    assert torch.cuda.current_stream() == stream
+    assert pipe.segment_graph_info() == (0, 0, 3, 1)
+    for frame, logits in zip(frames[1:], got):
+        assert torch.equal(logits, _eager(pipe, frame))

@@ -18,7 +18,16 @@ device cache (``ops/resize.py``), four lookups a frame at the serving
 configuration's resizes, and fuses the same bits as a copy of each matrix
 made at every call; the banded resize's rows of the cached matrix give the
 full resize's rows bit for bit.
+
+The forward's CUDA graph, on the CPU with the CUDA calls stood in for: which
+calls run eagerly, the key's eager call, capture and replays, a failed
+capture, and the kernels' launches, which a capture tallies apart (other
+threads count as ever) and each replay adds.
 """
+import contextlib
+import threading
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +45,8 @@ from vision_semantic_segmentation_tpu_torch.evaluation.map_eval import MapEvalua
 from vision_semantic_segmentation_tpu_torch.models import flax_to_state_dict
 from vision_semantic_segmentation_tpu_torch.models.resize import resize_nchw
 from vision_semantic_segmentation_tpu_torch.ops import resize
+from vision_semantic_segmentation_tpu_torch.ops.kernels import _lib as kernel_lib
+from vision_semantic_segmentation_tpu_torch.ops.kernels import depthwise as dw_kernels
 from vision_semantic_segmentation_tpu_torch.parallel import spatial_infer
 from vision_semantic_segmentation_tpu_torch.runtime import FusedFramePipeline, MappingReplay
 
@@ -241,3 +252,213 @@ def test_band_rows_of_the_cached_matrix_equal_the_full_resize(shards, dtype):
         band = spatial_infer._resize_band(src[:, :, r0:r1], rows, mw)
         assert band.dtype == dtype
         np.testing.assert_array_equal(band.float().numpy(), full[:, :, o0:o1].float().numpy())
+
+
+# -- the forward's CUDA graph: the decision and the bookkeeping, on the CPU ---------------
+def test_segment_on_the_cpu_runs_eagerly_and_equals_the_model(tmp_path):
+    """A CPU frame never captures: every call is counted eager and gives the
+    network's own logits on the normalised frame."""
+    pipe, frames = _serving_pipeline(tmp_path)
+    before = pipe.segment_graph_info()
+    with torch.no_grad():
+        for frame in frames["image"]:
+            xf = ((frame.float() / 255.0 - pipe._mean) / pipe._std).permute(2, 0, 1)[None]
+            want = pipe.model(xf, upsample_pred=pipe.upsample_pred)
+            np.testing.assert_array_equal(pipe.segment(frame).numpy(), want.numpy())
+    after = pipe.segment_graph_info()
+    assert (after.captures, after.replays, after.failed) == (0, 0, 0)
+    assert after.eager - before.eager == N_FRAMES
+
+
+def _card_frame():
+    """A stand-in for a frame on the card (the decision reads only its
+    device, shape and dtype): this host has no card."""
+    return types.SimpleNamespace(device=torch.device("cuda", 0), shape=torch.Size([180, 240, 3]),
+                                 dtype=torch.uint8)
+
+
+EAGER_CASES = ["cpu_frame", "params", "training", "capturing", "plain_versions"]
+
+
+@pytest.mark.parametrize("case", EAGER_CASES)
+def test_segment_stays_eager(tmp_path, monkeypatch, case):
+    """Each condition alone keeps a card frame off the graph (``_graph_key``
+    is None), and ``segment`` on the CPU under it counts one eager call and
+    gives the eager logits."""
+    pipe, frames = _serving_pipeline(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    with torch.no_grad():  # the control: a card frame and none of the conditions
+        assert pipe._graph_key(_card_frame(), "camera1", None) == (
+            "camera1", (180, 240, 3), torch.uint8, torch.device("cuda", 0), False)
+        want = pipe.segment(frames["image"][1])
+    if case == "capturing":
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    params = dict(pipe.model.state_dict()) if case == "params" else None
+    plain = kernel_lib.plain_versions() if case == "plain_versions" else contextlib.nullcontext()
+    if case == "training":
+        pipe.model.train()
+    frame = frames["image"][1] if case == "cpu_frame" else _card_frame()
+    with torch.no_grad(), plain:
+        assert pipe._graph_key(frame, "camera1", params) is None
+        before = pipe.segment_graph_info()
+        got = pipe.segment(frames["image"][1], "camera1", params)
+    after = pipe.segment_graph_info()
+    assert after._replace(eager=after.eager - 1) == before
+    assert not got.requires_grad
+    if case != "training":  # in training BatchNorm takes the frame's statistics
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_grad_mode_chooses_nothing(tmp_path, monkeypatch):
+    """The caller's grad mode keys the same graph and gives the same logits,
+    without grad: ``segment`` always runs its forward without it."""
+    pipe, frames = _serving_pipeline(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    keys, logits = [], []
+    for grad in (torch.no_grad, torch.enable_grad):
+        with grad():
+            keys.append(pipe._graph_key(_card_frame(), "camera1", None))
+            logits.append(pipe.segment(frames["image"][1]))
+    assert keys[0] is not None and keys[0] == keys[1]
+    assert not any(t.requires_grad for t in logits)
+    np.testing.assert_array_equal(logits[0].numpy(), logits[1].numpy())
+
+
+@pytest.fixture
+def stand_in_launch(monkeypatch):
+    """``CudaKernel.launch`` run on the CPU: the C entry points and the CUDA
+    stream stood in for, the launches counted as on the card."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    for k in kernel_lib.kernels():
+        monkeypatch.setattr(k, "_fn", lambda *args: 0)
+    return lambda k: k.launch(kernel_lib.ptr(torch.zeros(1)))
+
+
+class _StandInGraph:
+    """``torch.cuda.CUDAGraph`` stood in for: its capture runs the forward
+    once (on the CPU); its replay runs nothing."""
+
+    fail = False
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@contextlib.contextmanager
+def _stand_in_capture(graph, stream=None, capture_error_mode="global"):
+    assert capture_error_mode == "thread_local"
+    yield
+    if graph.fail:
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+
+@pytest.fixture
+def stand_in_cuda(monkeypatch, stand_in_launch):
+    """Every frame keyed for a graph, and the CUDA calls of a capture stood
+    in for; the forward launches K4 twice."""
+    forward = FusedFramePipeline._forward
+
+    def launching_forward(self, *args):
+        for _ in range(2):
+            stand_in_launch(dw_kernels.MULTI_KERNEL)
+        return forward(self, *args)
+
+    monkeypatch.setattr(FusedFramePipeline, "_forward", launching_forward)
+    monkeypatch.setattr(FusedFramePipeline, "_graph_key",
+                        lambda self, frame, camera, params: ("stand-in", tuple(frame.shape)))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _stand_in_capture)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(_StandInGraph, "fail", False)
+    return monkeypatch
+
+
+def test_key_runs_eagerly_then_captures_then_replays(tmp_path, stand_in_cuda):
+    """First call eager, second captured and replayed once, third replayed:
+    the frame copied into the graph's input, a fresh clone of its logits
+    returned each time; K4's launches counted once a replay, the capture's
+    own tallied apart; the graph holds the four matrices of the forward's
+    two resizes."""
+    pipe, frames = _serving_pipeline(tmp_path)  # its centring call: the key's first, eager
+    k4 = dw_kernels.MULTI_KERNEL
+    assert pipe.segment_graph_info() == (0, 0, 1, 0)
+    launches = k4.launches
+    with torch.no_grad():
+        captured = pipe.segment(frames["image"][1])
+        entry = next(v for v in pipe._graphs.values() if not isinstance(v, str))
+        replayed = pipe.segment(frames["image"][2])
+    assert pipe.segment_graph_info() == (1, 2, 1, 0)
+    assert entry.graph.replays == 2
+    assert k4.launches - launches == 2 * 2
+    assert entry.launches == {k4: 2}
+    assert len(entry.matrices) == 4
+    assert torch.equal(entry.frame, frames["image"][2])
+    ptrs = {t.data_ptr() for t in (captured, replayed, entry.logits)}
+    assert len(ptrs) == 3  # no return aliases the graph's output or another return
+    with torch.no_grad():
+        want = pipe._forward(frames["image"][1], "camera1", None)
+    np.testing.assert_array_equal(captured.numpy(), want.numpy())
+
+
+def test_failed_capture_runs_its_key_eagerly(tmp_path, stand_in_cuda):
+    """A capture that raises is counted and warned of, its tallied launches
+    dropped, and its key runs eagerly from then on, with the eager logits."""
+    pipe, frames = _serving_pipeline(tmp_path)  # its centring call: the key's first, eager
+    stand_in_cuda.setattr(_StandInGraph, "fail", True)
+    k4 = dw_kernels.MULTI_KERNEL
+    launches = k4.launches
+    with torch.no_grad():
+        with pytest.warns(RuntimeWarning, match="runs eagerly"):
+            got = [pipe.segment(frames["image"][i]) for i in (1, 2)]
+        assert pipe.segment_graph_info() == (0, 0, 3, 1)
+        assert k4.launches - launches == 2 * 2  # the two eager forwards' alone
+        want = [pipe._forward(frames["image"][i], "camera1", None) for i in (1, 2)]
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_launches_of_a_capture_are_tallied_apart_and_counted_per_replay(stand_in_launch):
+    k3, k4 = dw_kernels.KERNEL, dw_kernels.MULTI_KERNEL
+    before = (k3.launches, k4.launches)
+    with kernel_lib.captured_launches() as tally:
+        for _ in range(60):
+            stand_in_launch(k3)
+        stand_in_launch(k4)
+    assert tally == {k3: 60, k4: 1}
+    assert (k3.launches, k4.launches) == before
+    for _ in range(3):
+        kernel_lib.count_launches(tally)
+    stand_in_launch(k4)
+    assert (k3.launches - before[0], k4.launches - before[1]) == (180, 4)
+
+
+def test_other_threads_count_their_launches_during_a_capture(stand_in_launch):
+    """Launches another thread makes while this one captures ran: they are
+    counted as ever, and stay out of the capture's tally."""
+    k3, k4 = dw_kernels.KERNEL, dw_kernels.MULTI_KERNEL
+    before = (k3.launches, k4.launches)
+    started, release = threading.Event(), threading.Event()
+
+    def other():
+        started.set()
+        release.wait(10)
+        for _ in range(5):
+            stand_in_launch(k3)
+        stand_in_launch(k4)
+
+    worker = threading.Thread(target=other)
+    with kernel_lib.captured_launches() as tally:
+        worker.start()
+        started.wait(10)
+        stand_in_launch(k4)
+        release.set()
+        worker.join(10)
+        stand_in_launch(k4)
+    assert tally == {k4: 2}
+    assert (k3.launches - before[0], k4.launches - before[1]) == (5, 1)

@@ -8,7 +8,8 @@ run_window``) and a two-step ``Trainer.train_one_epoch`` emit their spans
 as ``user_annotation`` events, nested and in order.  The six readers under
 ``benchmark/metrics/`` that take idle card time and host time from the
 spans are held to hand-made traces, and read nothing where the program has
-no spans.
+no spans; so is the share of frames whose forward replayed a CUDA graph,
+which reads 0 where frames ran and none replayed.
 """
 import json
 import sys
@@ -165,7 +166,16 @@ TRAIN = _run([(5_000, 20_000), (22_000, 60_000), (70_000, 80_000)], [
     ("train.fetch", 0, 6_000), ("train.step", 6_000, 50_000), ("train.update", 18_000, 23_000),
     ("train.drain", 55_000, 65_000), ("train.fetch", 64_000, 67_000),
     ("train.drain", 66_000, 68_000), ("train.fetch", 79_000, 150_000)])
+# a graphed replay: four frames' segment spans, three replayed from the graph
+GRAPHED = _run([(10_000, 30_000)], [
+    ("pipeline.window", 0, 40_000),
+    ("pipeline.segment", 1_000, 5_000), ("pipeline.segment.capture", 1_500, 4_000),
+    ("pipeline.segment.replay", 4_000, 4_900),
+    ("pipeline.segment", 9_000, 10_000), ("pipeline.segment.replay", 9_100, 9_900),
+    ("pipeline.segment", 19_000, 20_000), ("pipeline.segment.replay", 19_100, 19_900),
+    ("pipeline.segment", 29_000, 30_000), ("aten::copy_", 29_100, 29_900)])
 EXPECTED = {
+    "graph_replay_pct.fps": (GRAPHED, 75.0),
     "idle_stage_pct.fps": (REPLAY, 18.0),  # the head [0, 10] and the gap's [32, 40]
     "idle_frame_pct.fps": (REPLAY, 1.0),  # the gap's [30, 31]
     "stage_pin_ms.fps": (REPLAY, 4.0),  # (3 + 5) / 2
@@ -196,3 +206,12 @@ def test_reader_without_program_spans_reads_nothing(name):
                      if not n.startswith(LAYERS)])
     assert reader.read(only_ops) is None
     assert reader.read(SimpleNamespace(dtrace=None)) is None
+
+
+def test_graph_reader_reads_zero_where_no_forward_replays():
+    """A program that launches the forward op by op has the
+    ``pipeline.segment`` spans and no replay: it reads 0 %."""
+    eager = _run([(a, a + d) for _, a, d in GRAPHED.dtrace.kernels],
+                 [(n, a, a + d) for n, a, d, _ in GRAPHED.dtrace.host
+                  if not n.startswith("pipeline.segment.")])
+    assert _reader("graph_replay_pct.fps").read(eager) == 0.0

@@ -21,10 +21,11 @@ low-level ``Library`` API adds a few microseconds a call and imports
 nothing more.
 
 Each :class:`CudaKernel` keeps ``launches``, the number of kernel launches
-its wrapper made.  ``plain_on_cuda`` is a test hook: while it is set (see
-:func:`plain_versions`), the wrapper runs its plain PyTorch version on a CUDA
-tensor instead of the kernel, so a whole run can be compared against the
-plain path.  Nothing on the main path sets it.
+its wrapper made (a launch captured into a CUDA graph is tallied apart, by
+:func:`captured_launches`, and counts at each replay).  ``plain_on_cuda`` is
+a test hook: while it is set (see :func:`plain_versions`), the wrapper runs
+its plain PyTorch version on a CUDA tensor instead of the kernel, so a whole
+run can be compared against the plain path.  Nothing on the main path sets it.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
@@ -50,6 +52,7 @@ NVCC_FLAGS = (
 )
 
 _REGISTRY: List["CudaKernel"] = []
+_capturing = threading.local()  # ``tally``: the capture's launches on this thread
 OPS = torch.library.Library("vss_torch", "FRAGMENT")
 
 
@@ -117,7 +120,11 @@ class CudaKernel:
             err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed: cudaError_t {err}")
-        self.launches += 1
+        tally = getattr(_capturing, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] = tally.get(self, 0) + 1
 
 
 def kernels() -> List[CudaKernel]:
@@ -178,6 +185,36 @@ def plain_versions() -> Iterator[None]:
 def reset_launch_counts() -> None:
     for k in _REGISTRY:
         k.launches = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[CudaKernel, int]]:
+    """Tally the launches this thread makes while open, in place of ``launches``.
+
+    Open around the capture of a CUDA graph: its launches are queued into
+    the graph and run nothing then, so they go to the tally, which
+    :func:`count_launches` adds at each replay; ``launches`` then counts the
+    kernels that ran, as it does for launches made one by one.  Other
+    threads count as ever.
+    """
+    tally: Dict[CudaKernel, int] = {}
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def count_launches(launches: Dict[CudaKernel, int]) -> None:
+    """Add ``launches`` (a replayed graph's, from :func:`captured_launches`)."""
+    for k, n in launches.items():
+        k.launches += n
+
+
+def plain_hooked() -> bool:
+    """Whether any wrapper runs its plain version on CUDA tensors (the test hook)."""
+    return any(k.plain_on_cuda for k in _REGISTRY)
 
 
 def uses_plain(kernel: CudaKernel, t: torch.Tensor) -> bool:

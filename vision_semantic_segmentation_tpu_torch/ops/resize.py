@@ -18,12 +18,16 @@ one arithmetic.  Layout is (..., H, W, C), as in the JAX package.
 The resizes read their matrices from :func:`_device_matrix`, which keeps
 each on the device it is used on: a copy from pageable host memory on every
 call would wait for the card's stream to drain, and hold the host there
-while a frame's work is queued.
+while a frame's work is queued.  A CUDA graph reads them by address, so its
+capture collects them (:func:`held_matrices`) and keeps them alive however
+the cache evicts or is cleared.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple
+import threading
+from typing import Iterator, List, NamedTuple
 
 import numpy as np
 import torch
@@ -103,12 +107,34 @@ def matrix_cache_info() -> MatrixCacheInfo:
     return MatrixCacheInfo(info.hits, info.misses)
 
 
+_holding = threading.local()
+
+
+@contextlib.contextmanager
+def held_matrices() -> Iterator[List[torch.Tensor]]:
+    """The matrices every resize on this thread reads while open, in a list.
+
+    For the capture of a CUDA graph, which reads them by address at each
+    replay: the graph keeps the list, so a matrix evicted from or cleared
+    out of :func:`_device_matrix`'s cache is not freed under it."""
+    held: List[torch.Tensor] = []
+    outer = getattr(_holding, "matrices", None)
+    _holding.matrices = held
+    try:
+        yield held
+    finally:
+        _holding.matrices = outer
+
+
 def _separable_resize(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
     """Apply 1-D resize matrices ``mh``, ``mw`` (f32, on ``x``'s device)
     along the H and W axes of (..., H, W, C) f32.
 
     In f32 also under ``torch.autocast`` (bf16 training), as the JAX package
     resizes in f32 whatever the compute dtype."""
+    held = getattr(_holding, "matrices", None)
+    if held is not None:
+        held += (mh, mw)
     with torch.autocast(x.device.type, enabled=False):
         x = torch.einsum("oh,...hwc->...owc", mh, x)
         return torch.einsum("ow,...hwc->...hoc", mw, x)

@@ -17,10 +17,17 @@ all branches; Xception's 60 stride-1 depthwise convs run K3), the update's
 fold runs K2 (under ``FOLD_METHOD 'matmul'``), and ``MappingReplay.finalize``
 renders with K1.  :meth:`FusedFramePipeline.compile_sequence_runner` runs
 the step exported by ``torch.export`` (``runtime/export.py``).
+
+On the card :meth:`FusedFramePipeline.segment` replays the preprocessing and
+the network's forward from a CUDA graph, one a (camera, frame shape,
+``upsample_pred``): the host launches a copy, the replay and a clone in
+place of about a thousand kernels a frame.  The same kernels run in the
+same order, so the logits are the eager ones bit for bit.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+import warnings
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +36,8 @@ from ..device import DeviceLike, resolve_device
 from ..inference.predictor import IMAGENET_MEAN, IMAGENET_STD
 from ..mapping.engine import SemanticMappingEngine
 from ..models.build import build_model
-from ..ops.resize import resize_area
+from ..ops import resize
+from ..ops.kernels import _lib as kernel_lib
 from ..ops.warp import undistort
 from ..utils.benchmark import span
 
@@ -44,6 +52,32 @@ def network_to_channel_table(cfg, num_network_classes: int = 19) -> np.ndarray:
     for channel, net_idx in enumerate(cfg.LABELS):
         table[net_idx] = channel
     return table
+
+
+class SegmentGraphInfo(NamedTuple):
+    """Calls of :meth:`FusedFramePipeline.segment` by how they ran: graphs
+    captured, calls replayed from a graph (the capturing call among them),
+    calls run eagerly, and captures that raised (their key then runs
+    eagerly)."""
+    captures: int
+    replays: int
+    eager: int
+    failed: int
+
+
+class _SegmentGraph(NamedTuple):
+    """A captured forward: its graph, static frame and logits, the
+    hand-written kernels' launches that one replay makes, and the resize
+    matrices it reads (held here, as the cache may drop them)."""
+    graph: object  # torch.cuda.CUDAGraph
+    frame: torch.Tensor
+    logits: torch.Tensor
+    launches: Dict[kernel_lib.CudaKernel, int]
+    matrices: Tuple[torch.Tensor, ...]
+
+
+_WARMED = "warmed"  # a key's first call ran eagerly; the next one captures
+_FAILED = "failed"  # a key's capture raised; it runs eagerly
 
 
 class FusedFramePipeline:
@@ -112,25 +146,108 @@ class FusedFramePipeline:
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
         self._pointwise: Dict[Tuple, Callable] = {}
         self._apply_update = self.engine._build_update()
+        self._graphs: Dict[Tuple, object] = {}  # key -> _WARMED, _FAILED or _SegmentGraph
+        self._graph_counts = dict.fromkeys(SegmentGraphInfo._fields, 0)
 
     def init_grid(self) -> torch.Tensor:
         return self.engine.init_grid()
 
-    @torch.no_grad()
     def segment(self, frame_u8: torch.Tensor, camera: str = "camera1",
                 params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """Raw (H, W, 3) uint8 frame -> (1, C, h', w') logits (ref node:82-110).
 
         ``params`` (a state dict) replaces the network's own weights for this
         call (``torch.func.functional_call``; the exported step's weights
-        are its inputs)."""
+        are its inputs).
+
+        A call that :meth:`_graph_key` keys replays a CUDA graph: the key's
+        first call runs eagerly (it chooses cuDNN's plans and fills the
+        resize matrices' cache, ``ops/resize.py``, which a capture may not
+        copy into), the second captures and replays, later ones copy the
+        frame into the graph's input and replay.  The graph reads the
+        weights, the running statistics and the resize matrices by address
+        (it holds the matrices): ``load_state_dict`` (an in-place copy) is
+        honoured, a parameter replaced by another tensor is not.  The
+        logits returned are a clone, which the next replay leaves alone.
+        The forward runs without grad, whatever the caller's grad mode.
+        :meth:`segment_graph_info` counts the calls by how they ran."""
+        key = self._graph_key(frame_u8, camera, params)
+        with torch.no_grad():
+            entry = None if key is None else self._graphs.get(key)
+            if isinstance(entry, _SegmentGraph):
+                return self._replay(entry, frame_u8)
+            if entry == _WARMED:
+                entry = self._capture(key, frame_u8, camera)
+                if entry is not None:
+                    return self._replay(entry, frame_u8)
+            elif key is not None and entry is None:
+                self._graphs[key] = _WARMED
+            self._graph_counts["eager"] += 1
+            return self._forward(frame_u8, camera, params)
+
+    def segment_graph_info(self) -> SegmentGraphInfo:
+        """:meth:`segment`'s calls by how they ran, since the pipeline was built."""
+        return SegmentGraphInfo(**self._graph_counts)
+
+    def _graph_key(self, frame_u8: torch.Tensor, camera: str,
+                   params: Optional[Mapping[str, torch.Tensor]]) -> Optional[Tuple]:
+        """The key of the CUDA graph that runs this call of :meth:`segment`,
+        or None where it runs eagerly: a frame off the card, weights given
+        for the call (the ``torch.export`` path), a model in training mode, a
+        capture already under way, or the kernels' plain versions set on the
+        card (a test hook)."""
+        if (frame_u8.device.type != "cuda" or params is not None or self.model.training
+                or torch.cuda.is_current_stream_capturing() or kernel_lib.plain_hooked()):
+            return None
+        return (camera, tuple(frame_u8.shape), frame_u8.dtype, frame_u8.device,
+                self.upsample_pred)
+
+    def _capture(self, key: Tuple, frame_u8: torch.Tensor,
+                 camera: str) -> Optional[_SegmentGraph]:
+        """Capture the forward of ``key`` on a side stream (thread-local
+        mode: the online nodes stage on other threads).  A capture that
+        raises is counted, warned of, and its key runs eagerly from then on;
+        its tallied launches never ran and are dropped."""
+        frame = frame_u8.clone(memory_format=torch.contiguous_format)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(frame.device)
+        try:
+            with span("pipeline.segment.capture"), torch.cuda.stream(stream):
+                # the outer stream context restores the caller's stream even
+                # where ending a failed capture raises
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"), \
+                        kernel_lib.captured_launches() as launches, \
+                        resize.held_matrices() as matrices:
+                    logits = self._forward(frame, camera, None)
+        except RuntimeError as err:
+            self._graphs[key] = _FAILED
+            self._graph_counts["failed"] += 1
+            warnings.warn(f"segment: capturing the forward of {key} failed, it runs "
+                          f"eagerly: {err}", RuntimeWarning, stacklevel=3)
+            return None
+        entry = _SegmentGraph(graph, frame, logits, launches, tuple(matrices))
+        self._graphs[key] = entry
+        self._graph_counts["captures"] += 1
+        return entry
+
+    def _replay(self, entry: _SegmentGraph, frame_u8: torch.Tensor) -> torch.Tensor:
+        with span("pipeline.segment.replay"):
+            entry.frame.copy_(frame_u8)
+            entry.graph.replay()
+            kernel_lib.count_launches(entry.launches)
+            self._graph_counts["replays"] += 1
+            return entry.logits.clone()
+
+    def _forward(self, frame_u8: torch.Tensor, camera: str,
+                 params: Optional[Mapping[str, torch.Tensor]]) -> torch.Tensor:
+        """Preprocess and the network, launched op by op."""
         x = frame_u8
         undistort_map = self._undistort_maps.get(camera)
         if undistort_map is not None:
             x = undistort(x, undistort_map)
         if self.image_scale < 1.0:
             h, w = frame_u8.shape[0], frame_u8.shape[1]
-            x = resize_area(x, (int(h * self.image_scale), int(w * self.image_scale)))
+            x = resize.resize_area(x, (int(h * self.image_scale), int(w * self.image_scale)))
         xf = (x.float() / 255.0 - self._mean) / self._std
         # (H, W, 3) is already channels-last memory for the NCHW view
         xf = xf.permute(2, 0, 1)[None].to(self.compute_dtype)
