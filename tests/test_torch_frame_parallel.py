@@ -41,10 +41,11 @@ ATOL_JAX = 1e-5
 SHARDS = 8
 
 
-def _cfg(fold="matmul", window=0):
+def _cfg(fold="matmul", window=0, sort="bitonic"):
     cfg = small_cfg()
     cfg.MAPPING.POINT_BUCKET = 2048
     cfg.MAPPING.FOLD_METHOD = fold
+    cfg.MAPPING.SORT_METHOD = sort
     cfg.MAPPING.UPDATE_WINDOW = window
     return cfg
 
@@ -80,12 +81,13 @@ def _check(got, want, j_grid):
     np.testing.assert_allclose(got.numpy(), j_grid, atol=ATOL_JAX, rtol=0)
 
 
-@pytest.mark.parametrize("fold,window", [("matmul", 0), ("scatter", 0), ("matmul", 96)])
-def test_run_matches_jax(fold, window):
-    """Plain, the 'scatter' fold against a sequential 'matmul' replay (the
-    full cross-fold equality), and ``UPDATE_WINDOW`` 96 honoured in each
-    shard's partial grid."""
-    cfg = _cfg(fold, window)
+@pytest.mark.parametrize("fold,sort,window", [("matmul", "bitonic", 0), ("scatter", "bitonic", 0),
+                                              ("scatter", "radix", 0), ("matmul", "bitonic", 96)])
+def test_run_matches_jax(fold, sort, window):
+    """Plain, against the JAX package's 'scatter' forms under both sorts
+    (the port runs its one update for every name), and ``UPDATE_WINDOW`` 96
+    honoured in each shard's partial grid."""
+    cfg = _cfg(fold, window, sort)
     frames = _frames(1, cfg)
     engine = SemanticMappingEngine(cfg, device="cpu")
     mesh = create_mesh(axis_names=("data",), devices=["cpu"] * SHARDS)

@@ -41,10 +41,11 @@ ATOL_JAX = 1e-5
 SHARDS = 8
 
 
-def _cfg(fold="matmul", window=0):
+def _cfg(fold="matmul", window=0, sort="bitonic"):
     cfg = small_cfg()
     cfg.MAPPING.POINT_BUCKET = 2048
     cfg.MAPPING.FOLD_METHOD = fold
+    cfg.MAPPING.SORT_METHOD = sort
     cfg.MAPPING.UPDATE_WINDOW = window
     assert cfg.MAPPING.PCD.USE_INTENSITY  # lane boost on
     return cfg
@@ -102,10 +103,12 @@ def _check(cfg, semantics, frame):
 
 
 @pytest.mark.parametrize("semantics", ["reference", "accumulate"])
+@pytest.mark.parametrize("sort", ["bitonic", "radix"])
 @pytest.mark.parametrize("fold", ["matmul", "scatter"])
-def test_step_matches_jax(fold, semantics):
-    """Both folds and both duplicate semantics through the per-band update."""
-    cfg = _cfg(fold)
+def test_step_matches_jax(fold, sort, semantics):
+    """The per-band update against each of the JAX package's four
+    fold/sort forms, in both duplicate semantics."""
+    cfg = _cfg(fold, sort=sort)
     _check(cfg, semantics, _frame(3, cfg))
 
 

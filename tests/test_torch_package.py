@@ -58,7 +58,7 @@ def test_no_jax_imports():
               "runtime.node", "utils.logger", "utils.file_io", "models.quant",
               "ops.kernels.int8_conv", "runtime.native_io", "train.tensorboard_util",
               "train.datasets.bdd", "train.datasets.pascal", "train.datasets.preparation",
-              "models.xception", "ops.sort", "runtime.export", "runtime.serving_pareto",
+              "models.xception", "runtime.export", "runtime.serving_pareto",
               "parallel.spatial_infer"}
     assert {f"{port.__name__}.{m}" for m in online} <= walked
     assert result["bad"] == []

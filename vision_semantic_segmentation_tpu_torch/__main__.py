@@ -24,7 +24,6 @@ flags:
                                                               [--height H --width W --window T]
     python -m vision_semantic_segmentation_tpu_torch autotune --cfg exp.yaml [--out tuned.yaml]
                                                               [--update-windows 0,600]
-                                                              [--folds ..] [--sorts ..]
     python -m vision_semantic_segmentation_tpu_torch autotune --serving --cfg exp.yaml
                                                               [--backbones ..] [--strides ..]
                                                               [--scales ..] [--no-quality]
@@ -53,14 +52,13 @@ weights and ignore it, as the JAX package's do).  ``compile`` writes the
 fused frame step exported by ``torch.export`` (``runtime/export.py``; the
 weights stay out of the artifact and are supplied at load, the kernels are
 custom ops in it); ``autotune`` times the grid update's
-``FOLD_METHOD``/``SORT_METHOD``/``UPDATE_WINDOW`` candidates and writes
-the winner as a YAML overlay (``runtime/tuning.py``); ``autotune
---serving`` sweeps operating points for frames/s and golden-scene mIoU
-(``runtime/serving_pareto.py``).  ``MODEL.SPATIAL_SHARDS`` bands the
-two-node dataflow's frames over the device's local cards
-(``inference/predictor.py``) and ``TRAIN.SPATIAL_SHARDS`` the training
-crops (``train/trainer.py``); with fewer cards than shards each raises
-the JAX package's ``ValueError``.
+``UPDATE_WINDOW`` candidates and writes the winner as a YAML overlay
+(``runtime/tuning.py``); ``autotune --serving`` sweeps operating points
+for frames/s and golden-scene mIoU (``runtime/serving_pareto.py``).
+``MODEL.SPATIAL_SHARDS`` bands the two-node dataflow's frames over the
+device's local cards (``inference/predictor.py``) and
+``TRAIN.SPATIAL_SHARDS`` the training crops (``train/trainer.py``); with
+fewer cards than shards each raises the JAX package's ``ValueError``.
 
 ``main(argv)`` returns the command's result: replay the rendered maps,
 ``pipeline`` a :class:`FusedRun` (``--fused``), the
@@ -465,8 +463,9 @@ def cmd_autotune_serving(args):
 
 
 def cmd_autotune(args):
-    """Time the grid-update backends at this config's shapes on this device
-    and write a YAML overlay naming the winner (``runtime/tuning.py``):
+    """Time the grid update's window candidates at this config's shapes on
+    this device and write a YAML overlay naming the winner
+    (``runtime/tuning.py``):
     ``autotune --cfg exp.yaml --out tuned.yaml``, then ``--cfg exp.yaml
     --cfg tuned.yaml`` (repeated --cfg merges in order)."""
     from .runtime.tuning import tune, write_overlay
@@ -476,18 +475,12 @@ def cmd_autotune(args):
     cfg = _load_app_cfg(args.cfg)
     update_windows = ([int(v) for v in args.update_windows.split(",") if v != ""]
                       if args.update_windows else None)
-    combos = None
-    if args.folds or args.sorts:
-        folds = (args.folds or "matmul,scatter").split(",")
-        sorts = (args.sorts or "bitonic,radix").split(",")
-        combos = [(f, s) for f in folds for s in sorts]
     result = tune(cfg, image_hw=(args.height, args.width), window=args.window,
-                  n_windows=args.windows, repeats=args.repeats, combos=combos,
+                  n_windows=args.windows, repeats=args.repeats,
                   update_windows=update_windows, camera=args.camera,
                   distortion=args.distortion, log=print, device=args.device)
     best = result["best"]
-    print(f"best: fold={best['fold']} sort={best['sort']} "
-          f"update_window={best['update_window']} -> {best['fps']} fps "
+    print(f"best: update_window={best['update_window']} -> {best['fps']} fps "
           f"on {result['device_kind']}")
     print(f"wrote {write_overlay(result, args.out)}")
     return result
@@ -606,7 +599,7 @@ def main(argv=None):
     p.add_argument("--window", type=int, default=16)
     p.set_defaults(fn=cmd_compile)
 
-    p = sub.add_parser("autotune", help="measure grid-update backends at this config's shapes; "
+    p = sub.add_parser("autotune", help="measure grid-update windows at this config's shapes; "
                                         "write a YAML overlay selecting the winner")
     add_cfg_and_device(p)
     p.add_argument("--out", default="tuned.yaml")
@@ -619,12 +612,10 @@ def main(argv=None):
     p.add_argument("--repeats", type=int, default=3, help="best-of repeats")
     p.add_argument("--update-windows", default="",
                    help="comma list of UPDATE_WINDOW cell sizes to sweep (0 = dense); "
-                        "default keeps the config's value")
-    p.add_argument("--folds", default="", help="comma list: matmul,scatter")
-    p.add_argument("--sorts", default="", help="comma list: bitonic,radix")
+                        "default 0 and ceil(2.2 * PCD.RANGE_MAX / RESOLUTION)")
     p.add_argument("--distortion", default="auto", choices=["auto", "none", "points"])
     p.add_argument("--serving", action="store_true",
-                   help="sweep serving operating points instead of grid-update backends: "
+                   help="sweep serving operating points instead of grid-update windows: "
                         "backbone x OUTPUT_STRIDE x IMAGE_SCALE x UPSAMPLE_PRED, each timed "
                         "through the fused pipeline and scored for golden-scene map mIoU; "
                         "writes the Pareto frontier and a recommended overlay")

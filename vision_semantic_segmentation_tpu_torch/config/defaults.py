@@ -58,13 +58,11 @@ _C.MAPPING.GRID_SHARDS = 1
 # very large grids a pose-centered window makes the update cost
 # independent of grid size; size it >= ~2.2 * PCD.RANGE_MAX / RESOLUTION.
 _C.MAPPING.UPDATE_WINDOW = 0
-# Grid-update backends (mapping/engine.py; both parity-pinned pairwise):
-# SORT_METHOD 'bitonic' (XLA jnp.sort) | 'radix' (ops/sort.py LSD passes);
-# FOLD_METHOD 'matmul' (dense observation buffer + MXU evidence fold) |
-# 'scatter' (per-cell evidence vectors, one unique-cell scatter —
-# O(points) HBM traffic instead of O(cells)).  They select between the
-# JAX package's TPU formulations; the port reads neither (its update is
-# one idempotent scatter plus the K2 fold).
+# The JAX package's grid-update forms: SORT_METHOD 'bitonic' | 'radix'
+# (its key sort), FOLD_METHOD 'matmul' (dense observation buffer + MXU
+# evidence fold) | 'scatter' (per-cell evidence vectors, one unique-cell
+# scatter).  The port checks both names and runs one update for every
+# name (mapping/engine.py: one idempotent scatter plus the K2 fold).
 _C.MAPPING.SORT_METHOD = "bitonic"
 _C.MAPPING.FOLD_METHOD = "matmul"
 

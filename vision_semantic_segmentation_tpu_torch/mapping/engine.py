@@ -10,38 +10,26 @@ math of ref mapping.py:292-488): per frame,
 
 The grid is planar (C, H, W) f32 on the device and is updated in place.
 
-The update has two forms, chosen by ``MAPPING.FOLD_METHOD`` (JAX
-``mapping/engine.py:446-456``; an unknown name raises ``ValueError``):
-
-``'matmul'`` (the default) marks hits in a dense (C, H*W) observation
-buffer, then K2 folds it into the grid.  The reference adds evidence with a
-numpy fancy-index ``+=``, which collapses duplicate (cell, class) hits to
-one observation per frame.  Here the hits are marked with ``index_put_`` of
-1.0 without accumulation: duplicates write the same value, so they collapse
-exactly, with no sort (the JAX package sorts, because a TPU serialises
-scatters with duplicate indices).  So ``SORT_METHOD`` changes nothing here:
-both sorts give one grid.  Points that do not update write to one spare
-slot past the end, so no boolean compaction (and no host sync) is needed.
+The update marks hits in a dense (C, H*W) observation buffer, then K2
+folds it into the grid.  The reference adds evidence with a numpy
+fancy-index ``+=``, which collapses duplicate (cell, class) hits to one
+observation per frame.  Here the hits are marked with ``index_put_`` of 1.0
+without accumulation: duplicates write the same value, so they collapse
+exactly, with no sort.  Points that do not update write to one spare slot
+past the end, so no boolean compaction (and no host sync) is needed.
 ``duplicate_semantics='accumulate'`` adds 1.0 per point with
 ``index_add_``; counts below 2**24 are exact in f32, so the result does not
-depend on the order of the atomics.
-
-``'scatter'`` (JAX ``:495-541``) touches O(points) cells, not O(cells): the
-(cell, class) keys are sorted cell-major (``SORT_METHOD``: ``'bitonic'`` is
-``torch.sort``, ``'radix'`` is ``ops/sort.py``), each hit becomes its
-class's evidence column scaled by the hit's observation (1, a count or a
-confidence), a segmented sum in a fixed order (a Hillis-Steele scan) totals
-each cell's columns, and one ``index_add_`` at the unique hit cells adds
-the totals to the grid.  Positions that are not a cell's last add exact
-zeros, so the grid does not depend on the order of the adds: it is equal
-bit for bit from run to run.  No K2 runs.  Its sums add the evidence
-columns in another order than K2's fold, so the two forms agree to f32
-rounding of at most C + 1 terms a cell.
+depend on the order of the atomics.  The JAX package also has a
+sort-and-segmented-scan form (``MAPPING.FOLD_METHOD 'scatter'``, keys
+sorted by ``SORT_METHOD``), because a TPU serialises scatters with
+duplicate indices; the card does not, so the port runs this one update for
+every name of both keys (an unknown name raises ``ValueError``).  Its grid
+matches each JAX form to f32 rounding of at most C + 1 terms a cell.
 
 Confidence weighting (``weights``): a deduped (cell, class) hit carries the
 largest confidence of its points (``scatter_reduce_`` ``amax`` into the
-buffer, or a segmented max); per-point mode sums the confidences.  With
-every weight at 1 the grid equals the unweighted one exactly.
+buffer); per-point mode sums the confidences.  With every weight at 1 the
+grid equals the unweighted one exactly.
 
 Windowed mode (``MAPPING.UPDATE_WINDOW`` > 0) updates a pose-centred slab
 gathered and scattered back by index tensors, so it reads nothing back to
@@ -73,7 +61,6 @@ from ..geometry.transforms import (
 )
 from ..ops.colormap import colors_to_labels
 from ..ops.kernels.fold import evidence_fold_add_
-from ..ops.sort import radix_sort_with_perm
 
 
 def getattr_cfg(cfg, dotted: str, default):
@@ -149,31 +136,6 @@ def pad_points(pcd: np.ndarray, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, valid
 
 
-def _segment_edges(sorted_keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(first, last): where each run of equal sorted keys starts and ends."""
-    edge = sorted_keys[1:] != sorted_keys[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=sorted_keys.device)
-    return torch.cat([one, edge]), torch.cat([edge, one])
-
-
-def _segmented_scan(first: torch.Tensor, values: torch.Tensor, op) -> torch.Tensor:
-    """Inclusive scan of ``op`` within the segments that start at ``first``
-    (Hillis-Steele: log2(n) passes, each element combined with the one
-    ``shift`` before it unless a segment starts between them).  The order
-    of the combines is fixed by the positions alone, so the result is the
-    same from run to run.  ``values`` may have trailing dims."""
-    n = values.shape[0]
-    shift = 1
-    while shift < n:
-        cur = first[shift:]
-        gate = cur.view(-1, *([1] * (values.dim() - 1)))
-        values = torch.cat([values[:shift],
-                            torch.where(gate, values[shift:], op(values[:-shift], values[shift:]))])
-        first = torch.cat([first[:shift], cur | first[:-shift]])
-        shift *= 2
-    return values
-
-
 class SemanticMappingEngine:
     """Mapping engine; the grid is explicit state, updated in place.
 
@@ -222,8 +184,8 @@ class SemanticMappingEngine:
         self.use_intensity = bool(cfg.MAPPING.PCD.USE_INTENSITY)
         self.range_max = float(cfg.MAPPING.PCD.RANGE_MAX)
         self.point_bucket = int(cfg.MAPPING.POINT_BUCKET)
-        # the update's form ('matmul' | 'scatter') and the scatter form's
-        # key sort ('bitonic' | 'radix'); checked when the update is built
+        # the JAX package's update form and key sort; the port runs one
+        # update for every name, and checks the names when it is built
         self.fold_method = str(getattr_cfg(cfg, "MAPPING.FOLD_METHOD", "matmul"))
         self.sort_method = str(getattr_cfg(cfg, "MAPPING.SORT_METHOD", "bitonic"))
 
@@ -408,21 +370,19 @@ class SemanticMappingEngine:
 
         return pointwise
 
-    def _build_dense_update(self, device=None):
+    def _build_dense_update(self):
         """Closure ``update(grid, cell, cls, intensity, upd, gh, gw, weights=None)``.
 
         ``grid`` is a contiguous planar (C, gh, gw) slab, updated in place;
         ``cell`` indexes it as ``row * gw + col``.  ``weights`` (N,) scales
-        each point's observation (confidence weighting).  The form follows
-        ``fold_method`` (see the module docstring).  ``device`` holds the
-        'scatter' form's evidence rows (default: the engine's).
+        each point's observation (confidence weighting).  Every known
+        ``fold_method`` and ``sort_method`` builds this one update (see the
+        module docstring).
         """
         if self.fold_method not in ("matmul", "scatter"):
             raise ValueError(f"unknown fold_method {self.fold_method!r}")
         if self.sort_method not in ("bitonic", "radix"):
             raise ValueError(f"unknown sort_method {self.sort_method!r}")
-        if self.fold_method == "scatter":
-            return self._build_scatter_update(device)
         evidence = self.evidence
         num_cls = evidence.shape[0]
         lane = self.lane_channel
@@ -471,69 +431,16 @@ class SemanticMappingEngine:
 
         return _dense_update
 
-    def _build_scatter_update(self, device=None):
-        """``fold_method='scatter'``: sort the cell-major (cell, class) keys,
-        total each cell's evidence columns with segmented sums, add the totals
-        at the unique hit cells (JAX ``_scatter_fold``)."""
-        ev_rows = torch.as_tensor(np.ascontiguousarray(self.evidence.T),
-                                  device=device or self.device)
-        num_cls = self.evidence.shape[0]
-        lane = self.lane_channel
-        use_intensity = self.use_intensity and lane >= 0
-        dedupe = self.duplicate_semantics == "reference"
-        use_radix = self.sort_method == "radix"
-
-        def _scatter_update(grid, cell, cls, intensity, upd, gh, gw, weights=None):
-            sentinel = gh * gw * num_cls
-            key = torch.where(upd, cell.long() * num_cls + cls.clamp(min=0).long(),
-                              torch.full_like(cell, sentinel, dtype=torch.long))
-            if use_radix:
-                ksort, order = radix_sort_with_perm(key, key_bits=int(sentinel).bit_length())
-                order = order.long()
-            else:
-                ksort, order = torch.sort(key, stable=True)
-            kvalid = ksort < sentinel
-            cls_s, cell_s = ksort % num_cls, ksort // num_cls
-            first, last = _segment_edges(ksort)
-
-            if weights is not None:
-                w = torch.where(kvalid, weights.to(grid.dtype)[order], 0.0)
-                obs = _segmented_scan(first, w, torch.maximum if dedupe else torch.add)
-            elif dedupe:  # one observation per (cell, class) a frame
-                obs = torch.ones_like(ksort, dtype=grid.dtype)
-            else:  # per-point counts
-                obs = _segmented_scan(first, kvalid.to(grid.dtype), torch.add)
-            # each (cell, class) segment's last element carries its class's
-            # evidence column scaled by the segment's observation
-            hit = last & kvalid
-            vals = ev_rows[cls_s] * torch.where(hit, obs, 0.0)[:, None]
-            if use_intensity:
-                boost = upd & (cls == lane) & ((intensity < 2) | (intensity > 14))
-                bstat = _segmented_scan(first, boost[order].to(grid.dtype), torch.add)
-                if dedupe:  # any boost point in the segment: +2 once
-                    bstat = torch.clamp(bstat, max=1.0)
-                vals[:, lane] += torch.where(hit & (cls_s == lane), 2.0 * bstat, 0.0)
-            # keys sort cell-major, so a cell's segments are contiguous
-            cell_first, cell_last = _segment_edges(cell_s)
-            totals = _segmented_scan(cell_first, vals, torch.add)
-            at = cell_last & kvalid
-            grid.view(num_cls, gh * gw).index_add_(
-                1, torch.where(at, cell_s, 0), torch.where(at[:, None], totals, 0.0).T)
-            return grid
-
-        return _scatter_update
-
-    def _build_update(self, device=None):
+    def _build_update(self):
         """Closure ``update(grid, cell, cls, intensity, upd, weights=None)``
-        applying the frame update to the full (C, H, W) grid (on ``device``,
-        default the engine's).
+        applying the frame update to the full (C, H, W) grid.
 
         Windowed mode: the update runs on a pose-centred (C, win, win) slab,
         so its cost is independent of the grid size.  The slab is gathered
         and written back through index tensors centred on the mean updated
         cell, so nothing is read back to the host.
         """
-        _dense_update = self._build_dense_update(device)
+        _dense_update = self._build_dense_update()
         spec = self.grid_spec
         h, w = spec.height, spec.width
         win = int(self.update_window) if self.update_window else 0

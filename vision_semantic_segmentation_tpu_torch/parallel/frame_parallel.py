@@ -56,7 +56,7 @@ def make_frame_parallel_run(
     devices = list(line.devices)
     pointwise = {d: engine._build_pointwise(camera, pcd_in_velodyne_frame, device=d)
                  for d in distinct(devices)}
-    apply_update = {d: engine._build_update(device=d) for d in distinct(devices)}
+    apply_update = engine._build_update()
     frames_sharding = NamedSharding(line, P(axis))
 
     def run(grid, pcds, valids, images, positions, quaternions, *weights):
@@ -71,7 +71,7 @@ def make_frame_parallel_run(
             for t in range(blocks[0][s].shape[0]):
                 pcd, valid, image, position, quaternion, *w = (b[s][t] for b in blocks)
                 cell, cls, vis, upd = pointwise[dev](pcd, valid, image, position, quaternion)
-                apply_update[dev](local, cell, cls, pcd[3], upd, weights=w[0] if w else None)
+                apply_update(local, cell, cls, pcd[3], upd, weights=w[0] if w else None)
             partials.append(local)
         grid += psum(line, partials, axis)[0].to(grid.device)
         return grid

@@ -11,9 +11,9 @@ traffic between bands while the grid accumulates (cell ownership routes
 the updates); one gather when the map is rendered or saved.
 
 The per-band update is the engine's own (``_build_dense_update``: K2's
-fold or the 'scatter' form, both ``duplicate_semantics``, the lane boost
-and confidence weights), so every band behaves as the single-device step
-does.  A cell belongs to one band, so per-band dedupe is global dedupe.
+fold, both ``duplicate_semantics``, the lane boost and confidence
+weights), so every band behaves as the single-device step does.  A cell
+belongs to one band, so per-band dedupe is global dedupe.
 
 Windowed mode (``MAPPING.UPDATE_WINDOW`` > 0): every band computes the same
 global pose-centred window from all updated points, then updates its
@@ -105,19 +105,18 @@ def gather_grid(grid_sharded: ShardedGrid, device: Optional[DeviceLike] = None) 
     return grid_sharded.gather(device)
 
 
-def make_band_updater(engine, nshards: int, device: Optional[DeviceLike] = None) -> Callable:
+def make_band_updater(engine, nshards: int) -> Callable:
     """Per-frame update of one shard's (C, band, W) row band.
 
     Returns ``update(grid_band, shard_id, cell, cls, intensity, upd,
     weights=None) -> grid_band`` applying the engine's dense update to the
     band in place (or, in ``MAPPING.UPDATE_WINDOW`` mode, to the band's
     intersection with the pose-centred global window, through a slab).
-    ``device`` is the band's (it holds the 'scatter' form's constants).
-    Shared by the grid-sharded step and the composed sharded-grid +
-    frame-parallel runner, so every path keeps identical duplicate/window
-    semantics.
+    One closure serves every band, on whatever device it lives.  Shared
+    by the grid-sharded step and the composed sharded-grid + frame-parallel
+    runner, so every path keeps identical duplicate/window semantics.
     """
-    dense_update = engine._build_dense_update(device)
+    dense_update = engine._build_dense_update()
     spec = engine.grid_spec
     h, w = spec.height, spec.width
     if h % nshards:
@@ -214,7 +213,7 @@ def make_sharded_step(
     the unsharded ``weights=`` path's.
     """
     devices = mesh.along(axis)
-    update_band = {d: make_band_updater(engine, len(devices), device=d) for d in distinct(devices)}
+    update_band = make_band_updater(engine, len(devices))
     pointwise = {d: engine._build_pointwise(camera, pcd_in_velodyne_frame, device=d)
                  for d in distinct(devices)}
 
@@ -228,8 +227,8 @@ def make_sharded_step(
             cell, cls, vis, upd = pointwise[dev](pcd_d, valid_d, image_d, pos_d, quat_d)
             for shard_id, band_dev in enumerate(devices):
                 if band_dev == dev:
-                    update_band[dev](grid_sharded.bands[shard_id], shard_id, cell, cls,
-                                     pcd_d[3], upd, weights=w)
+                    update_band(grid_sharded.bands[shard_id], shard_id, cell, cls,
+                                pcd_d[3], upd, weights=w)
         return grid_sharded
 
     return step
@@ -263,7 +262,7 @@ def make_sharded_frame_parallel_run(
     n_data, n_grid = sub.devices.shape
     band_devices = list(sub.devices[0])
     all_devices = distinct(sub.devices.flat)
-    update_band = {d: make_band_updater(engine, n_grid, device=d) for d in all_devices}
+    update_band = make_band_updater(engine, n_grid)
     pointwise = {d: engine._build_pointwise(camera, pcd_in_velodyne_frame, device=d)
                  for d in all_devices}
     frames_sharding = NamedSharding(sub, P(data_axis))
@@ -289,7 +288,7 @@ def make_sharded_frame_parallel_run(
                         points[dev] = (pointwise[dev](pcd, valid, image, pos, quat), pcd[3],
                                        w[0] if w else None)
                     (cell, cls, vis, upd), intensity, w = points[dev]
-                    update_band[dev](partials[d, g], g, cell, cls, intensity, upd, weights=w)
+                    update_band(partials[d, g], g, cell, cls, intensity, upd, weights=w)
         totals = psum(sub, partials, data_axis)
         for g, band in enumerate(grid_sharded.bands):
             band += totals[0, g]

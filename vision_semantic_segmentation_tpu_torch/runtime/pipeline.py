@@ -14,9 +14,9 @@ composes the palette write (ref node:114) with the engine's palette match
 
 On the card the forward's ASPP atrous depthwise convs run K4 (one call for
 all branches; Xception's 60 stride-1 depthwise convs run K3), the update's
-fold runs K2 (under ``FOLD_METHOD 'matmul'``), and ``MappingReplay.finalize``
-renders with K1.  :meth:`FusedFramePipeline.compile_sequence_runner` runs
-the step exported by ``torch.export`` (``runtime/export.py``).
+fold runs K2, and ``MappingReplay.finalize`` renders with K1.
+:meth:`FusedFramePipeline.compile_sequence_runner` runs the step exported
+by ``torch.export`` (``runtime/export.py``).
 
 On the card :meth:`FusedFramePipeline.segment` replays the preprocessing and
 the network's forward from a CUDA graph, one a (camera, frame shape,

@@ -8,17 +8,17 @@ the device (:func:`generate_windows`), the fused runner's timing
 (:func:`_resolve_distortion`) and the autotuner (:func:`tune`,
 :func:`overlay_yaml`, :func:`write_overlay`; the ``autotune`` command).
 The tuner times the real ``FusedFramePipeline`` at the user's exact
-configuration for each ``MAPPING.FOLD_METHOD`` / ``SORT_METHOD`` (and
-optionally ``UPDATE_WINDOW``) candidate and writes a YAML overlay naming
-the fastest safe one:
+configuration for each ``MAPPING.UPDATE_WINDOW`` candidate (by default the
+dense update, 0, and the smallest window that keeps every point of a frame,
+``ceil(2.2 * PCD.RANGE_MAX / RESOLUTION)`` cells, where that is smaller
+than the grid) and writes a YAML overlay naming the fastest safe one:
 
     python -m vision_semantic_segmentation_tpu_torch autotune --cfg exp.yaml --out tuned.yaml
     python -m vision_semantic_segmentation_tpu_torch replay --cfg exp.yaml --cfg tuned.yaml ...
 
-The default combinations are three, not the JAX package's four: in the
-port the ``'matmul'`` fold sorts nothing, so ``('matmul', 'radix')`` would
-time the same program as ``('matmul', 'bitonic')``.  Naming it with
-``--folds``/``--sorts`` still runs it.
+The JAX tuner also times each ``FOLD_METHOD``/``SORT_METHOD`` pair; the
+port runs one grid update for every such name, so it has nothing there to
+choose.
 
 Timing discipline: frames are made on the device (host staging would time
 the transport), each timed region starts and ends with
@@ -38,15 +38,8 @@ from ..device import DeviceLike, resolve_device
 from ..mapping import PCD_ORIGIN_OFFSET
 from ..models.build import build_model
 
-__all__ = ["DEFAULT_COMBOS", "init_state_dict", "generate_windows", "time_fused_runner", "tune",
+__all__ = ["init_state_dict", "generate_windows", "time_fused_runner", "tune",
            "overlay_yaml", "write_overlay"]
-
-# (fold, sort) combinations; the default first, so a tie keeps it
-DEFAULT_COMBOS: Tuple[Tuple[str, str], ...] = (
-    ("matmul", "bitonic"),
-    ("scatter", "bitonic"),
-    ("scatter", "radix"),
-)
 
 
 def sync(device: torch.device) -> None:
@@ -168,12 +161,27 @@ def _resolve_distortion(cfg, engine, camera: str, image_hw: Tuple[int, int],
     return "points" if (undistort and calibrated) else "none"
 
 
-def _time_combo(
+def _safe_window(cfg) -> int:
+    """The smallest pose-centred window (cells) that holds a frame's
+    worst-case footprint, ~2.2 * RANGE_MAX / RESOLUTION cells; a smaller one
+    drops out-of-window points: faster but not the same map."""
+    return math.ceil(2.2 * float(cfg.MAPPING.PCD.RANGE_MAX) / float(cfg.MAPPING.RESOLUTION))
+
+
+def _default_windows(cfg) -> Tuple[int, ...]:
+    """The dense update, and the safe window where it is smaller than the
+    grid (the engine runs a window that spans the grid as the dense update)."""
+    from ..mapping.engine import GridSpec
+
+    spec = GridSpec.from_cfg(cfg)
+    safe = _safe_window(cfg)
+    return (0, safe) if safe < max(spec.height, spec.width) else (0,)
+
+
+def _time_update_window(
     cfg,
     state_dict: Mapping[str, torch.Tensor],
-    fold: str,
-    sort: str,
-    update_window: Optional[int],
+    update_window: int,
     windows: List[dict],
     image_hw: Tuple[int, int],
     window: int,
@@ -182,34 +190,23 @@ def _time_combo(
     distortion: str,
     device: torch.device,
 ) -> dict:
-    """Time the fused runner for one backend combination (JAX ``_time_combo``)."""
+    """Time the fused runner at one update window (JAX ``_time_combo``)."""
     from ..mapping.engine import SemanticMappingEngine
     from .pipeline import FusedFramePipeline
 
-    combo_cfg = cfg.clone()
-    combo_cfg.defrost()
-    combo_cfg.MAPPING.FOLD_METHOD = fold
-    combo_cfg.MAPPING.SORT_METHOD = sort
-    if update_window is not None:
-        combo_cfg.MAPPING.UPDATE_WINDOW = int(update_window)
-    engine = SemanticMappingEngine(combo_cfg, device=device)
-    # a pose-centred window smaller than a frame's worst-case footprint
-    # (~2.2 * RANGE_MAX / RESOLUTION cells) drops out-of-window points: faster
-    # but not the same map, so such rows never win (see tune)
-    uw_val = int(combo_cfg.MAPPING.UPDATE_WINDOW)
-    required = math.ceil(
-        2.2 * float(combo_cfg.MAPPING.PCD.RANGE_MAX) / float(combo_cfg.MAPPING.RESOLUTION))
+    row_cfg = cfg.clone()
+    row_cfg.defrost()
+    row_cfg.MAPPING.UPDATE_WINDOW = uw_val = int(update_window)
+    engine = SemanticMappingEngine(row_cfg, device=device)
+    # a lossy window never wins (see tune)
     grid_max = max(engine.grid_spec.height, engine.grid_spec.width)
-    lossy = 0 < uw_val < min(required, grid_max)
-    dist = _resolve_distortion(combo_cfg, engine, camera, image_hw, distortion)
-    pipeline = FusedFramePipeline(combo_cfg, state_dict, engine=engine, distortion=dist,
+    lossy = 0 < uw_val < min(_safe_window(row_cfg), grid_max)
+    dist = _resolve_distortion(row_cfg, engine, camera, image_hw, distortion)
+    pipeline = FusedFramePipeline(row_cfg, state_dict, engine=engine, distortion=dist,
                                   device=device)
     fps, warmup_s = time_fused_runner(pipeline, windows, window, camera, repeats)
     return {
-        "fold": fold,
-        "sort": sort,
         "update_window": uw_val,
-        "tuned_update_window": update_window is not None,
         "lossy": lossy,
         "distortion": dist,
         "fps": round(fps, 3),
@@ -225,7 +222,6 @@ def tune(
     window: int = 16,
     n_windows: int = 2,
     repeats: int = 3,
-    combos: Optional[Sequence[Tuple[str, str]]] = None,
     update_windows: Optional[Sequence[int]] = None,
     camera: str = "camera1",
     distortion: str = "auto",
@@ -233,24 +229,24 @@ def tune(
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     device: DeviceLike = "cuda",
 ) -> Dict:
-    """Time every backend combination on ``device`` at ``cfg``'s shapes.
+    """Time every UPDATE_WINDOW candidate on ``device`` at ``cfg``'s shapes.
 
     Args:
         cfg: the app config whose MAPPING geometry and bucket define the
-          workload; rows override its FOLD/SORT/UPDATE_WINDOW values.
+          workload; rows override its UPDATE_WINDOW value.
         variables / state_dict: the network's weights (the JAX package's
           flax variables, or a state dict); seeded random weights when
           neither is given (timing does not depend on their values).
-        update_windows: UPDATE_WINDOW candidates (cells) swept as an outer
-          product with the combos; ``None`` keeps the cfg's value.
+        update_windows: UPDATE_WINDOW candidates (cells); ``None`` times
+          the dense update and the safe window (see _default_windows).
         distortion: 'auto' | 'none' | 'points' (see _resolve_distortion).
 
-    Returns ``rows`` (one per combination, in run order), ``best`` (the
+    Returns ``rows`` (one per candidate, in run order), ``best`` (the
     highest fps among rows that keep every point: an update window smaller
     than a frame's worst-case footprint drops points and is timed for
-    information only; the earlier row wins a tie, so the defaults survive
-    a wash) and the workload descriptor.  Raises ``ValueError`` when every
-    swept UPDATE_WINDOW candidate is lossy.
+    information only; the earlier row wins a tie) and the workload
+    descriptor.  Raises ``ValueError`` when every UPDATE_WINDOW candidate
+    is lossy.
     """
     from ..models.convert import flax_to_state_dict
 
@@ -259,37 +255,25 @@ def tune(
         state_dict = (flax_to_state_dict(variables) if variables is not None
                       else init_state_dict(cfg.VISION_SEM_SEG.SEM_SEG_NETWORK, device=dev))
     windows = generate_windows(cfg, image_hw, window, n_windows, device=dev)
-    combos = tuple(combos) if combos else DEFAULT_COMBOS
-    uw_candidates: Sequence[Optional[int]] = tuple(update_windows) if update_windows else (None,)
-
     rows = []
-    for uw in uw_candidates:
-        for fold, sort in combos:
-            row = _time_combo(cfg, state_dict, fold, sort, uw, windows, image_hw, window,
-                              camera, repeats, distortion, dev)
-            rows.append(row)
-            if log:
-                log(
-                    f"fold={row['fold']:<7} sort={row['sort']:<7} "
-                    f"update_window={row['update_window']:<5} "
-                    f"{row['fps']:8.2f} fps  ({row['ms_per_frame']:.2f} ms/frame, "
-                    f"warmup {row['warmup_s']:.0f}s)"
-                    + ("  [LOSSY: drops out-of-window points]" if row["lossy"] else "")
-                )
+    for uw in update_windows or _default_windows(cfg):
+        row = _time_update_window(cfg, state_dict, uw, windows, image_hw, window, camera,
+                                  repeats, distortion, dev)
+        rows.append(row)
+        if log:
+            log(
+                f"update_window={row['update_window']:<5} "
+                f"{row['fps']:8.2f} fps  ({row['ms_per_frame']:.2f} ms/frame, "
+                f"warmup {row['warmup_s']:.0f}s)"
+                + ("  [LOSSY: drops out-of-window points]" if row["lossy"] else "")
+            )
     safe = [r for r in rows if not r["lossy"]]
-    if not safe and update_windows:
+    if not safe:
         raise ValueError(
             "every UPDATE_WINDOW candidate is lossy at this config "
             "(needs >= ceil(2.2 * PCD.RANGE_MAX / RESOLUTION) cells, or 0 "
             "for the dense update) — add a safe candidate"
         )
-    if not safe:
-        # no sweep asked for and the cfg's own UPDATE_WINDOW is lossy: rank
-        # the backends at that setting all the same, and say so
-        if log:
-            log("warning: cfg's UPDATE_WINDOW drops out-of-window points "
-                "at PCD.RANGE_MAX — ranking backends at that setting")
-        safe = rows
     best = max(safe, key=lambda r: r["fps"])
     return {
         "rows": rows,
@@ -305,7 +289,7 @@ def tune(
 
 
 def overlay_yaml(result: Dict) -> str:
-    """The winning combination as a merge-ready yacs YAML overlay."""
+    """The winning update window as a merge-ready yacs YAML overlay."""
     best = result["best"]
     h, w = result["image_hw"]
     lines = [
@@ -314,11 +298,8 @@ def overlay_yaml(result: Dict) -> str:
         f"bucket {result['point_bucket']}, grid "
         f"{result['boundary']} @ {result['resolution']} m",
         "MAPPING:",
-        f"  FOLD_METHOD: {best['fold']}",
-        f"  SORT_METHOD: {best['sort']}",
+        f"  UPDATE_WINDOW: {best['update_window']}",
     ]
-    if best.get("tuned_update_window"):
-        lines.append(f"  UPDATE_WINDOW: {best['update_window']}")
     return "\n".join(lines) + "\n"
 
 
