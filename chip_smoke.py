@@ -179,8 +179,10 @@ Phases (any failure raises, so the exit code is non-zero):
    ``main(["compile", ...])`` of phase 3's network at 1440x1920, window 8
    (export seconds), ``load_sequence_runner`` with its state dict (load
    seconds; the artifact smaller than the state dict), one window: K4 8,
-   K2 8, the grid updated in place and equal to ``run_window``'s to 1e-3;
-   frames/s of both; a window of 7 refused.  (c) ``main(["autotune",
+   K2 8, the grid updated in place and equal to 1e-3 to that of ``step``
+   given the weights as inputs (``params``: the modules unfolded, as the
+   exported step runs them); frames/s of it and ``run_window``; a window
+   of 7 refused.  (c) ``main(["autotune",
    ...])`` at 1440x1920 over update windows of 1100 (lossy: 2200 cells
    needed) and 0: 2 rows, a lossy row never best, the overlay merged into
    a config that runs a window; then that window under FOLD_METHOD
@@ -1956,7 +1958,7 @@ def serve_trained(weights: Path, smi: str) -> None:
     seen = {}
     hook = pipeline.model.register_forward_pre_hook(lambda m, a: seen.setdefault("x", a[0]))
     K.reset_launch_counts()
-    logits = pipeline.segment(frame)
+    logits = pipeline.segment(frame)  # BatchNorm folded (``models/fold.py``)
     launches = launches_now()
     hook.remove()
 
@@ -2571,15 +2573,22 @@ def compile_phase(pipeline: FusedFramePipeline, frames: dict, smi: str) -> None:
         raise AssertionError("the loaded runner did not update the grid in place")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    direct = pipeline.run_window(pipeline.init_grid(), frames)
+    pipeline.run_window(pipeline.init_grid(), frames)
     torch.cuda.synchronize()
     t_direct = time.perf_counter() - t0
+    # the exported step takes the weights as inputs and runs the modules
+    # unfolded, as ``step`` does with ``params``; ``run_window`` folds them
+    direct, params = pipeline.init_grid(), pipeline.model.state_dict()
+    for i in range(WINDOW):
+        direct, _ = pipeline.step(direct, *(frames[k][i] for k in (
+            "image", "pcd", "valid", "position", "quaternion")), params=params)
     diff = float((grid - direct).abs().max())
     print(f"compile: loaded runner {WINDOW / t_loaded:.3f} frames/s against run_window's "
           f"{WINDOW / t_direct:.3f} (host clock, window of {WINDOW}) on {smi}; launches "
-          f"{launches}; grid max |diff| {diff} against run_window's", flush=True)
+          f"{launches}; grid max |diff| {diff} against the steps' with the weights as inputs",
+          flush=True)
     if not torch.allclose(grid, direct, atol=1e-3) or float(grid.sum()) <= 0:
-        raise AssertionError(f"the exported runner's grid differs from run_window's by {diff}")
+        raise AssertionError(f"the exported runner's grid differs from the steps' by {diff}")
     try:
         run(pipeline.init_grid(), {k: v[:WINDOW - 1] for k, v in frames.items()})
     except ValueError as exc:

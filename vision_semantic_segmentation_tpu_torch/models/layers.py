@@ -15,11 +15,18 @@ over one input through K4 (:func:`depthwise_convs`); other depthwise convs
 (the decoder's unpadded refine convs) and grouped convs are plain
 ``F.conv2d``, as the JAX package runs them outside any Pallas kernel.  The
 TPU-only block-diagonal and tile-diagonal grouped forms are not ported.
+
+Every conv that a BatchNorm follows runs through :func:`conv_bn`, which
+takes the conv's folded form where a folded eval forward is under way
+(``models/fold.py``: the BatchNorm in the conv's weights, the bias, a
+residual add and the ReLU in one call) and the modules one by one
+otherwise.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Sequence, Tuple, Union
+import contextvars
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -224,6 +231,38 @@ def checkpointed(module: nn.Module, fn: Callable, *args):
                       context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
+# the folded forms of the forward under way on this thread, by conv (``models/fold.py``)
+_FOLDED: contextvars.ContextVar[Optional[Mapping[nn.Module, Callable]]] = contextvars.ContextVar(
+    "folded_forms", default=None)
+
+
+@contextlib.contextmanager
+def folded_forms(forms: Mapping[nn.Module, Callable]):
+    """Within the block, :func:`conv_bn` runs each conv in ``forms`` as
+    ``forms[conv](x, z, relu)`` (``models/fold.py``)."""
+    token = _FOLDED.set(forms)
+    try:
+        yield
+    finally:
+        _FOLDED.reset(token)
+
+
+def conv_bn(conv: nn.Module, bn: Optional[nn.Module], x: torch.Tensor,
+            z: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
+    """``relu(bn(conv(x)) + z)``, without the parts not given: the conv's
+    folded form inside :func:`folded_forms`, else the modules one by one."""
+    forms = _FOLDED.get()
+    form = None if forms is None else forms.get(conv)
+    if form is not None:
+        return form(x, z, relu)
+    y = conv(x)
+    if bn is not None:
+        y = bn(y)
+    if z is not None:
+        y = y + z
+    return F.relu(y) if relu else y
+
+
 class DepthwiseConv2d(nn.Conv2d):
     """Depthwise ``nn.Conv2d`` (groups == channels) that runs K3 where it applies."""
 
@@ -308,10 +347,11 @@ class ConvBNReLU(nn.Module):
         self.bn = BatchNorm2d(features, eps=1e-5) if bn else None
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``relu(bn(conv(x)) + z)``: ``z`` a residual added before the ReLU."""
         if self.pre_pad is not None:
             x = F.pad(x, self.pre_pad)
-        return self.post_conv(self.conv(x))
+        return conv_bn(self.conv, self.bn, x, z, self.relu)
 
     def post_conv(self, x: torch.Tensor) -> torch.Tensor:
         """BatchNorm and ReLU, for a caller that ran ``self.conv`` itself."""
@@ -347,8 +387,9 @@ class DepthwiseSeparableConv(nn.Module):
             in_channels, features, 1, bn=pointwise_bn, relu=pointwise_relu,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise_cnn(self.depthwise_cnn(x))
+    def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``z``: a residual the pointwise conv adds (see :class:`ConvBNReLU`)."""
+        return self.pointwise_cnn(self.depthwise_cnn(x), z)
 
     def finish(self, y: torch.Tensor) -> torch.Tensor:
         """The rest of the branch after its depthwise conv's output ``y``."""

@@ -14,9 +14,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from .layers import BatchNorm2d, checkpointed
+from .layers import BatchNorm2d, checkpointed, conv_bn
 
 
 def _downsample(inplanes: int, outplanes: int, stride: int) -> nn.Sequential:
@@ -43,10 +42,9 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(inplanes, planes, stride) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = self.downsample(x) if self.downsample is not None else x
-        return F.relu(out + identity)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        identity = x if self.downsample is None else conv_bn(*self.downsample, x)
+        return conv_bn(self.conv2, self.bn2, out, z=identity, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -74,11 +72,10 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = self.downsample(x) if self.downsample is not None else x
-        return F.relu(out + identity)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        out = conv_bn(self.conv2, self.bn2, out, relu=True)
+        identity = x if self.downsample is None else conv_bn(*self.downsample, x)
+        return conv_bn(self.conv3, self.bn3, out, z=identity, relu=True)
 
 
 class ResNetBackbone(nn.Module):
@@ -144,7 +141,7 @@ class ResNetBackbone(nn.Module):
             setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(conv_bn(self.conv1, self.bn1, x, relu=True))
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):

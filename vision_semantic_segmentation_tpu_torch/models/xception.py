@@ -50,9 +50,11 @@ class XceptionBlock(nn.Module):
     """k separable convs + a conv/sum/none shortcut (ref xception.py:9-152).
 
     The residual path applies an entry ReLU, then k-1 separable convs each
-    followed by ReLU, then a final separable conv without a trailing ReLU.
-    ``return_residual_features`` also returns the feature right before the
-    last ReLU (the DeepLab low-level tap, taken pre-ReLU).
+    followed by ReLU, then a final separable conv without a trailing ReLU,
+    which adds the shortcut.  ``return_residual_features`` also returns the
+    feature right before the last ReLU (the DeepLab low-level tap, taken
+    pre-ReLU).  The ReLU after a separable conv is its pointwise conv's
+    (``pointwise_cnn.relu``) but for the tap's, which the block applies.
     """
 
     def __init__(
@@ -78,16 +80,17 @@ class XceptionBlock(nn.Module):
         self.skip_type = skip_type
         ins = [in_channels, *residual_channels[:-1]]
 
-        def sepconv(i: int) -> DepthwiseSeparableConv:
+        def sepconv(i: int, relu: bool = False) -> DepthwiseSeparableConv:
             return DepthwiseSeparableConv(
                 ins[i], residual_channels[i], residual_kernel_size[i],
                 stride=residual_stride[i], padding="same", dilation=residual_dilation[i],
-                depthwise_bn=True, pointwise_bn=True,
+                depthwise_bn=True, pointwise_bn=True, pointwise_relu=relu,
             )
 
         group1 = []
+        tap = len(residual_channels) - 2 if return_residual_features else None
         for i in range(len(residual_channels) - 1):
-            group1 += [sepconv(i), nn.ReLU()]
+            group1 += [sepconv(i, relu=i != tap), nn.ReLU()]
         self.residual_group1 = nn.ModuleList(group1)
         # the extra (0, 1, 0, 1) zero pad before the strided conv makes the
         # residual and the 1x1/2 shortcut sizes agree (ref :101-102)
@@ -103,16 +106,18 @@ class XceptionBlock(nn.Module):
         residual = F.relu(x) if self.entry_relu else x
         low_level = None
         for sep in self.residual_group1[::2]:
-            low_level = sep(residual)  # pre-ReLU tap (ref xception.py:133-136)
-            residual = F.relu(low_level)
-        for m in self.residual_group2:
+            residual = sep(residual)
+            if not sep.pointwise_cnn.relu:  # the pre-ReLU tap (ref xception.py:133-136)
+                low_level, residual = residual, F.relu(residual)
+        *pad, last = self.residual_group2
+        for m in pad:
             residual = m(residual)
+        skip = None
         if self.skip_type == "conv":
-            out = residual + self.skip_connection(x)
+            skip = self.skip_connection(x)
         elif self.skip_type == "sum":
-            out = residual + x
-        else:
-            out = residual
+            skip = x
+        out = last(residual, skip)
         if self.return_residual_features:
             return out, low_level
         return out

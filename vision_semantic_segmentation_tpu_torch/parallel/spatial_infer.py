@@ -900,8 +900,9 @@ class SpatialModel:
         residual = x.map(relu) if block.entry_relu else x
         low_level = None
         for sep in block.residual_group1[::2]:
-            low_level = self.module(sep, residual)
-            residual = low_level.map(relu)
+            residual = self.module(sep, residual)
+            if not sep.pointwise_cnn.relu:  # the pre-ReLU tap
+                low_level, residual = residual, residual.map(relu)
         for m in block.residual_group2:
             residual = self.module(m, residual)
         if block.skip_type == "conv":

@@ -22,7 +22,11 @@ On the card :meth:`FusedFramePipeline.segment` replays the preprocessing and
 the network's forward from a CUDA graph, one a (camera, frame shape,
 ``upsample_pred``): the host launches a copy, the replay and a clone in
 place of about a thousand kernels a frame.  The same kernels run in the
-same order, so the logits are the eager ones bit for bit.
+same order, so the logits are the eager ones bit for bit.  On the card in
+eval that forward runs with the network's BatchNorms folded into the convs
+and the bias, residual add and ReLU in the conv's epilogue
+(``models/fold.py``), graphed or not; every other call (training,
+``params``, a CPU frame) runs the modules as they are.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..inference.predictor import IMAGENET_MEAN, IMAGENET_STD
 from ..mapping.engine import SemanticMappingEngine
+from ..models import fold
 from ..models.build import build_model
 from ..ops import resize
 from ..ops.kernels import _lib as kernel_lib
@@ -148,6 +153,7 @@ class FusedFramePipeline:
         self._apply_update = self.engine._build_update()
         self._graphs: Dict[Tuple, object] = {}  # key -> _WARMED, _FAILED or _SegmentGraph
         self._graph_counts = dict.fromkeys(SegmentGraphInfo._fields, 0)
+        self._folded: Optional[fold.FoldedNetwork] = None  # made at the first call that folds
 
     def init_grid(self) -> torch.Tensor:
         return self.engine.init_grid()
@@ -167,43 +173,77 @@ class FusedFramePipeline:
         frame into the graph's input and replay.  The graph reads the
         weights, the running statistics and the resize matrices by address
         (it holds the matrices): ``load_state_dict`` (an in-place copy) is
-        honoured, a parameter replaced by another tensor is not.  The
+        honoured; a parameter replaced by another tensor is honoured where
+        it folds (below), not where the graph reads it itself (K3's and
+        K4's weights, a BatchNorm left unfolded).  The
         logits returned are a clone, which the next replay leaves alone.
         The forward runs without grad, whatever the caller's grad mode.
-        :meth:`segment_graph_info` counts the calls by how they ran."""
+        :meth:`segment_graph_info` counts the calls by how they ran.
+
+        A call that :meth:`_folds`, keyed or not (eager, captured or
+        replayed), runs the network's folded forward (``models/fold.py``),
+        refolded first where a weight or statistic changed since the last
+        fold (:meth:`fold_info`); the graph reads the folded weights by
+        address.  Any other call runs the modules unfolded."""
         key = self._graph_key(frame_u8, camera, params)
+        folded = self._folds(frame_u8, params)
         with torch.no_grad():
+            if folded:
+                self._refold()
             entry = None if key is None else self._graphs.get(key)
             if isinstance(entry, _SegmentGraph):
                 return self._replay(entry, frame_u8)
             if entry == _WARMED:
-                entry = self._capture(key, frame_u8, camera)
+                entry = self._capture(key, frame_u8, camera, folded)
                 if entry is not None:
                     return self._replay(entry, frame_u8)
             elif key is not None and entry is None:
                 self._graphs[key] = _WARMED
             self._graph_counts["eager"] += 1
-            return self._forward(frame_u8, camera, params)
+            return self._forward(frame_u8, camera, params, folded)
 
     def segment_graph_info(self) -> SegmentGraphInfo:
         """:meth:`segment`'s calls by how they ran, since the pipeline was built."""
         return SegmentGraphInfo(**self._graph_counts)
 
+    def fold_info(self) -> fold.FoldInfo:
+        """The folded forward (:meth:`segment`): BatchNorm sites folded and
+        left, refolds since the first fold, conv calls by form (all 0 before
+        the first call that folds)."""
+        if self._folded is None:
+            return fold.FoldInfo(0, 0, 0, {})
+        return self._folded.info()
+
+    def _refold(self) -> None:
+        """Fold the network at the first call that folds; refold in place
+        later where a source tensor changed (never while a capture runs)."""
+        if self._folded is None:
+            self._folded = fold.FoldedNetwork(self.model)
+        else:
+            self._folded.refresh()
+
+    def _folds(self, frame_u8: torch.Tensor,
+               params: Optional[Mapping[str, torch.Tensor]]) -> bool:
+        """Whether this call of :meth:`segment` runs the folded forward: a
+        frame on the card, the network's own weights (no ``params``: the
+        ``torch.export`` path), eval, and no capture already under way."""
+        return (frame_u8.device.type == "cuda" and params is None and not self.model.training
+                and not torch.cuda.is_current_stream_capturing())
+
     def _graph_key(self, frame_u8: torch.Tensor, camera: str,
                    params: Optional[Mapping[str, torch.Tensor]]) -> Optional[Tuple]:
         """The key of the CUDA graph that runs this call of :meth:`segment`,
-        or None where it runs eagerly: a frame off the card, weights given
-        for the call (the ``torch.export`` path), a model in training mode, a
-        capture already under way, or the kernels' plain versions set on the
-        card (a test hook)."""
-        if (frame_u8.device.type != "cuda" or params is not None or self.model.training
-                or torch.cuda.is_current_stream_capturing() or kernel_lib.plain_hooked()):
+        or None where it runs eagerly: a call that does not fold
+        (:meth:`_folds`), or the kernels' plain versions set on the card (a
+        test hook, under which the forward still folds, so that the plain
+        versions are held to the same network)."""
+        if not self._folds(frame_u8, params) or kernel_lib.plain_hooked():
             return None
         return (camera, tuple(frame_u8.shape), frame_u8.dtype, frame_u8.device,
                 self.upsample_pred)
 
-    def _capture(self, key: Tuple, frame_u8: torch.Tensor,
-                 camera: str) -> Optional[_SegmentGraph]:
+    def _capture(self, key: Tuple, frame_u8: torch.Tensor, camera: str,
+                 folded: bool) -> Optional[_SegmentGraph]:
         """Capture the forward of ``key`` on a side stream (thread-local
         mode: the online nodes stage on other threads).  A capture that
         raises is counted, warned of, and its key runs eagerly from then on;
@@ -218,7 +258,7 @@ class FusedFramePipeline:
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"), \
                         kernel_lib.captured_launches() as launches, \
                         resize.held_matrices() as matrices:
-                    logits = self._forward(frame, camera, None)
+                    logits = self._forward(frame, camera, None, folded)
         except RuntimeError as err:
             self._graphs[key] = _FAILED
             self._graph_counts["failed"] += 1
@@ -239,8 +279,10 @@ class FusedFramePipeline:
             return entry.logits.clone()
 
     def _forward(self, frame_u8: torch.Tensor, camera: str,
-                 params: Optional[Mapping[str, torch.Tensor]]) -> torch.Tensor:
-        """Preprocess and the network, launched op by op."""
+                 params: Optional[Mapping[str, torch.Tensor]],
+                 folded: bool = False) -> torch.Tensor:
+        """Preprocess and the network, launched op by op; ``folded``: the
+        folded forward, where the network has one."""
         x = frame_u8
         undistort_map = self._undistort_maps.get(camera)
         if undistort_map is not None:
@@ -254,7 +296,8 @@ class FusedFramePipeline:
         if params is not None:
             return torch.func.functional_call(self.model, params, (xf,),
                                               {"upsample_pred": self.upsample_pred})
-        return self.model(xf, upsample_pred=self.upsample_pred)
+        network = self._folded if folded else self.model
+        return network(xf, upsample_pred=self.upsample_pred)
 
     def _pointwise_for(self, camera: str, image_hw, velodyne_frame: bool):
         key = (camera, tuple(image_hw), velodyne_frame)
